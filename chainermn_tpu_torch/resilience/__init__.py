@@ -1,0 +1,12 @@
+"""Resilience: the error taxonomy, the event log and fault injection
+(the subset the serving path uses)."""
+
+from .errors import PreemptionError, ResilienceError, TransientCommError
+from .fault_injection import FaultInjector, FaultSpec, inject_faults
+from .log import ResilienceEvent, ResilienceLog, attach, detach, emit
+
+__all__ = [
+    "FaultInjector", "FaultSpec", "PreemptionError", "ResilienceError",
+    "ResilienceEvent", "ResilienceLog", "TransientCommError", "attach",
+    "detach", "emit", "inject_faults",
+]

@@ -1,0 +1,63 @@
+"""Resilience error taxonomy (the serving path's subset).
+
+A copy of the classes of ``chainermn_tpu/resilience/errors.py`` that the
+ported serving path raises or catches.  Every failure the resilience
+layer can contain is a :class:`ResilienceError` carrying structured
+diagnostics; its ``recoverable`` flag is the contract with the retry
+paths (the batcher re-queues a request on a recoverable error and
+propagates everything else).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+
+class ResilienceError(RuntimeError):
+    """Base class: a contained distributed failure with diagnostics.
+
+    ``site`` names the instrumented operation (e.g. ``serving.prefill``),
+    ``peer`` the rank/process involved (when addressed), ``attempts`` how
+    many tries the retry layer spent, ``elapsed`` the wall-clock seconds
+    across those tries.
+    """
+
+    recoverable = False
+
+    def __init__(self, message: str, *, site: Optional[str] = None,
+                 peer=None, attempts: Optional[int] = None,
+                 elapsed: Optional[float] = None):
+        super().__init__(message)
+        self.site = site
+        self.peer = peer
+        self.attempts = attempts
+        self.elapsed = elapsed
+
+    def describe(self) -> str:
+        """One structured line for logs."""
+        parts = [f"kind={type(self).__name__}",
+                 f"recoverable={self.recoverable}"]
+        if self.site is not None:
+            parts.append(f"site={self.site}")
+        if self.peer is not None:
+            parts.append(f"peer={self.peer}")
+        if self.attempts is not None:
+            parts.append(f"attempts={self.attempts}")
+        if self.elapsed is not None:
+            parts.append(f"elapsed={self.elapsed:.2f}s")
+        return " ".join(parts)
+
+
+class TransientCommError(ResilienceError):
+    """A host-side exchange timed out or failed transiently (raised
+    directly by the fault injector's ``timeout`` kind).  Recoverable."""
+
+    recoverable = True
+
+
+class PreemptionError(ResilienceError):
+    """A worker received a preemption/reclaim notice (or the injector's
+    ``preempt`` kind simulating one).  Recoverable in the same world;
+    the batcher treats it as a drain signal and lets it propagate."""
+
+    recoverable = True

@@ -1,0 +1,84 @@
+"""The port stands alone: no module of ``chainermn_tpu_torch`` and not
+``chip_smoke.py`` imports JAX, flax, optax or the JAX package, importing
+the package loads no subpackage, and the serving path runs with those
+modules made unimportable."""
+
+import ast
+import os
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+BANNED = {"jax", "jaxlib", "flax", "optax", "chainermn_tpu"}
+
+
+def _port_sources():
+    paths = [os.path.join(REPO, "chip_smoke.py")]
+    root = os.path.join(REPO, "chainermn_tpu_torch")
+    for dirpath, dirnames, filenames in os.walk(root):
+        dirnames[:] = sorted(d for d in dirnames if d != "_build")
+        paths += [os.path.join(dirpath, f) for f in sorted(filenames)
+                  if f.endswith(".py")]
+    return paths
+
+
+def test_no_banned_imports_in_port_sources():
+    found = []
+    paths = _port_sources()
+    assert len(paths) > 10 and os.path.isfile(paths[0])
+    for path in paths:
+        with open(path, encoding="utf-8") as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            for name in names:
+                if name.split(".")[0] in BANNED:
+                    found.append(f"{os.path.relpath(path, REPO)}:"
+                                 f"{node.lineno} imports {name}")
+    assert not found, "\n".join(found)
+
+
+_BLOCKED_RUN = r"""
+import importlib.abc, sys
+
+BANNED = {banned!r}
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path, target=None):
+        if name.split(".")[0] in BANNED:
+            raise ImportError(f"blocked: {{name}}")
+        return None
+
+sys.meta_path.insert(0, Block())
+
+import chainermn_tpu_torch
+assert "chainermn_tpu_torch.ops" not in sys.modules, "facade is not lazy"
+
+from chainermn_tpu_torch.models import TransformerLM
+from chainermn_tpu_torch.serving import ContinuousBatcher, DecodeEngine, Request
+
+lm = TransformerLM(64, 32, 4, 2, max_len=64, seed=0)
+eng = DecodeEngine(lm, capacity=2, page_size=8, attention_impl="flash",
+                   device="cpu")
+out = ContinuousBatcher(eng).serve([Request([1, 2, 3], 4),
+                                    Request([4, 5], 3)])
+assert [r.state for r in out] == ["done", "done"]
+assert not any(m.split(".")[0] in BANNED for m in sys.modules)
+print("ok")
+"""
+
+
+def test_port_imports_and_serves_with_jax_blocked():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    r = subprocess.run(
+        [sys.executable, "-c", _BLOCKED_RUN.format(banned=BANNED)],
+        capture_output=True, text=True, cwd=REPO, env=env, timeout=300,
+    )
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert r.stdout.strip().endswith("ok")

@@ -15,17 +15,33 @@ subpackages below load on first attribute access.
 
 Ported so far: the serving path (``serving.PagedKVCache``,
 ``serving.DecodeEngine``, ``serving.ContinuousBatcher``) over the
-``models.TransformerLM`` and the ``ops.flash_decode`` kernel.
+``models.TransformerLM`` and the ``ops.flash_decode`` kernel; and the
+data-parallel training path (``create_communicator`` ->
+``scatter_dataset`` -> ``create_multi_node_optimizer`` ->
+``build_train_step``, one process per card) with the flash-attention
+forward and backward kernels (``ops.flash_attention``).
 """
 
 import importlib
 
-_SUBPACKAGES = ("models", "observability", "ops", "resilience", "serving")
+_SUBPACKAGES = ("comm_wire", "communicators", "datasets", "models",
+                "observability", "ops", "resilience", "serving")
 
-__all__ = list(_SUBPACKAGES)
+# top-level entry points, as chainermn_tpu exports them: name -> module
+_ENTRY_POINTS = {
+    "create_communicator": "communicators",
+    "create_multi_node_optimizer": "optimizers",
+    "build_train_step": "optimizers",
+    "scatter_dataset": "datasets",
+}
+
+__all__ = list(_SUBPACKAGES) + list(_ENTRY_POINTS)
 
 
 def __getattr__(name):
     if name in _SUBPACKAGES:
         return importlib.import_module(f"{__name__}.{name}")
+    if name in _ENTRY_POINTS:
+        module = importlib.import_module(f"{__name__}.{_ENTRY_POINTS[name]}")
+        return getattr(module, name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -2,7 +2,11 @@
 
 The non-parallel ``TransformerLM``: pre-LN blocks, a weight-tied output
 head, compute in ``dtype`` (bf16 by default) over fp32 parameters, fp32
-LayerNorm and fp32 logits.  No sequence or tensor parallelism, dropout,
+LayerNorm and fp32 logits, and :func:`lm_loss` for training.  The
+attention core is the dense ``multi_head_attention`` unless an
+``attention_fn(q, k, v, causal, scale)`` hook is given (the JAX
+package's ``attention_fn``; ``ops.flash_attention.flash_attention_fn``
+reaches the flash kernels).  No sequence or tensor parallelism, dropout,
 vocab-parallel head or flax-style decode mode: serving decodes through
 ``serving.decode.PagedLM``, which reuses these modules' parameters.
 
@@ -21,7 +25,7 @@ Weights are in ``nn.Linear`` layout ``(out, in)``;
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
@@ -30,6 +34,10 @@ from torch import nn
 from ..ops.attention import multi_head_attention
 
 LN_EPS = 1e-6  # flax.linen.LayerNorm's default
+
+# attention_fn(q, k, v, causal, scale) -> out, all (batch, seq, heads, d)
+AttentionFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor, bool,
+                        float], torch.Tensor]
 
 
 def dense(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
@@ -59,15 +67,18 @@ class MlpBlock(nn.Module):
 
 
 class SelfAttention(nn.Module):
-    """Causal self-attention: one fused qkv projection, the dense
-    attention core, an output projection; no biases."""
+    """Causal self-attention: one fused qkv projection, the attention
+    core (``attention_fn`` or the dense one), an output projection; no
+    biases."""
 
-    def __init__(self, d_model: int, n_heads: int, dtype: torch.dtype):
+    def __init__(self, d_model: int, n_heads: int, dtype: torch.dtype,
+                 attention_fn: Optional[AttentionFn] = None):
         super().__init__()
         if d_model % n_heads:
             raise ValueError(f"d_model ({d_model}) % n_heads ({n_heads})")
         self.n_heads = n_heads
         self.dtype = dtype
+        self.attention_fn = attention_fn
         self.qkv = nn.Linear(d_model, 3 * d_model, bias=False)
         self.proj = nn.Linear(d_model, d_model, bias=False)
 
@@ -81,7 +92,10 @@ class SelfAttention(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, s, d = x.shape
         q, k, v = self.project_qkv(x)
-        out = multi_head_attention(q, k, v, causal=True)
+        if self.attention_fn is not None:
+            out = self.attention_fn(q, k, v, True, (d // self.n_heads) ** -0.5)
+        else:
+            out = multi_head_attention(q, k, v, causal=True)
         return dense(out.reshape(b, s, d), self.proj, self.dtype)
 
 
@@ -90,11 +104,12 @@ class TransformerBlock(nn.Module):
     compute dtype."""
 
     def __init__(self, d_model: int, n_heads: int, d_ff: int,
-                 dtype: torch.dtype):
+                 dtype: torch.dtype,
+                 attention_fn: Optional[AttentionFn] = None):
         super().__init__()
         self.dtype = dtype
         self.ln1 = nn.LayerNorm(d_model, eps=LN_EPS)
-        self.attn = SelfAttention(d_model, n_heads, dtype)
+        self.attn = SelfAttention(d_model, n_heads, dtype, attention_fn)
         self.ln2 = nn.LayerNorm(d_model, eps=LN_EPS)
         self.mlp = MlpBlock(d_model, d_ff, dtype)
 
@@ -116,7 +131,8 @@ class TransformerLM(nn.Module):
     def __init__(self, vocab_size: int, d_model: int = 256,
                  n_heads: int = 8, n_layers: int = 4,
                  d_ff: Optional[int] = None, max_len: int = 2048,
-                 dtype: torch.dtype = torch.bfloat16, seed: int = 0):
+                 dtype: torch.dtype = torch.bfloat16, seed: int = 0,
+                 attention_fn: Optional[AttentionFn] = None):
         super().__init__()
         self.vocab_size = vocab_size
         self.d_model = d_model
@@ -128,7 +144,7 @@ class TransformerLM(nn.Module):
         self.embed = nn.Embedding(vocab_size, d_model)
         self.pos_embed = nn.Parameter(torch.empty(max_len, d_model))
         self.blocks = nn.ModuleList(
-            TransformerBlock(d_model, n_heads, self.d_ff, dtype)
+            TransformerBlock(d_model, n_heads, self.d_ff, dtype, attention_fn)
             for _ in range(n_layers)
         )
         self.ln_f = nn.LayerNorm(d_model, eps=LN_EPS)
@@ -162,3 +178,12 @@ class TransformerLM(nn.Module):
         for blk in self.blocks:
             x = blk(x)
         return self.head(x)
+
+
+def lm_loss(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """Next-token cross entropy over a (batch, seq) token block, in fp32,
+    the mean over (batch, seq - 1) (port of ``models.transformer.
+    lm_loss``: optax's integer-label softmax cross entropy)."""
+    vocab = logits.shape[-1]
+    return F.cross_entropy(logits[:, :-1].reshape(-1, vocab).float(),
+                           tokens[:, 1:].reshape(-1))

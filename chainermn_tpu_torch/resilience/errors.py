@@ -61,3 +61,11 @@ class PreemptionError(ResilienceError):
     the batcher treats it as a drain signal and lets it propagate."""
 
     recoverable = True
+
+
+class StepDivergedError(ResilienceError):
+    """Non-finite gradients under the ``abort`` policy of
+    ``build_train_step``.  Not recoverable: restarting from the same
+    state would diverge again."""
+
+    recoverable = False

@@ -6,22 +6,35 @@ NVIDIA card: the quickest proof that the port still starts on the GPU.
 
 Run from the repository root, with one card.  Phases:
 
-1. the card's name and power limit (``nvidia-smi``), then the main
-   path's kernel built from ``chainermn_tpu_torch/ops/csrc`` and the
-   build time;
-2. each kernel against its plain PyTorch version on the card, at the
-   shapes the main path gives it, with the tolerance stated, and timed
+1. the card's name and power limit (``nvidia-smi``), then every
+   kernel source under ``chainermn_tpu_torch/ops/csrc`` built (one
+   ``nvcc`` each, in parallel), with registers, shared memory and
+   spills;
+2. the decode kernel against its plain PyTorch version on the card, at
+   the shapes the serving path gives it, with the tolerance stated, and timed
    beside the plain version, one PyTorch library call computing the same
    function (timed here only, as a yardstick) and the least time the
    card could take (its bound);
-3. the main path: the full-width TransformerLM served through
+3. the serving path: the full-width TransformerLM served through
    ``ContinuousBatcher`` -> ``DecodeEngine(attention_impl="flash")``, with
    every kernel's launch count set to 0 just before and read just after;
    then the same stream through the dense attend, and a lockstep check
    of the two engines' logits on identical inputs;
 4. a ``torch.profiler`` breakdown of a steady decode step for both
    attends (device time by kernel, launches per step, idle share, host
-   ops), and the page allocator's host time per decode step.
+   ops), and the page allocator's host time per decode step;
+5. the flash-attention training kernels (forward, dq, dk/dv) against
+   their plain versions at the training shape (bf16 and fp32), a ragged
+   causal shape and a non-causal cross shape, timed at the training
+   shape beside their plain versions, scaled_dot_product_attention and
+   their bounds;
+6. the training main path: the full-width TransformerLM trained on
+   batch 8 x 2048 tokens through ``create_communicator`` ->
+   ``bcast_data`` -> ``create_multi_node_optimizer(AdamW)`` ->
+   ``build_train_step`` on a 1-rank NCCL group, the flash kernels'
+   counts set to 0 just before the timed steps and read just after; a
+   ``torch.profiler`` step; flash vs dense attend on identical params
+   and batch.
 
 Any failed check raises, so the script exits non-zero.  Without CUDA it
 exits non-zero before printing any result.  The last two lines are the
@@ -38,8 +51,9 @@ import numpy as np
 import torch
 
 import chainermn_tpu_torch
-from chainermn_tpu_torch.models import TransformerLM
+from chainermn_tpu_torch.models import TransformerLM, lm_loss
 from chainermn_tpu_torch.ops import _build
+from chainermn_tpu_torch.ops import flash_attention as fa
 from chainermn_tpu_torch.ops.flash_decode import (
     TOLERANCE, flash_decode, paged_decode_reference)
 from chainermn_tpu_torch.serving import ContinuousBatcher, DecodeEngine, Request
@@ -418,6 +432,382 @@ def serve_phase():
     }
 
 
+# ----------------------------------------------------------------------
+# Training slice: the flash-attention kernels (K2-K4) and the
+# data-parallel step
+# ----------------------------------------------------------------------
+# bench.py:784 config_transformer_lm: batch 8 x seq 2048 per chip
+TRAIN_BATCH, TRAIN_SEQ = 8, 2048
+TRAIN_WARMUP, TRAIN_STEPS = 1, 4
+# (batch, s_q, s_k, heads, d, causal): the training path's shape, a
+# ragged causal one and a non-causal cross one
+FLASH_SHAPES = [
+    (TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, N_HEADS, D_MODEL // N_HEADS, True),
+    (TRAIN_BATCH, 2000, 2000, N_HEADS, D_MODEL // N_HEADS, True),
+    (TRAIN_BATCH, 1000, 1500, N_HEADS, D_MODEL // N_HEADS, False),
+]
+FLASH_KERNELS = ("flash_forward", "flash_backward_dq", "flash_backward_dkv")
+# where each kernel's TPU original is, and how many fp32 products of
+# (pairs x d) it does: QK and PV; QK, dO.V and dS.K; QK, dO.V, P.dO and
+# dS.Q
+FLASH_REPLACES = {
+    "flash_forward": "chainermn_tpu/ops/pallas_attention.py:367",
+    "flash_backward_dq": "chainermn_tpu/ops/pallas_attention.py:619",
+    "flash_backward_dkv": "chainermn_tpu/ops/pallas_attention.py:747",
+}
+FLASH_PRODUCTS = {"flash_forward": 2, "flash_backward_dq": 3,
+                  "flash_backward_dkv": 4}
+# Flash vs dense attend on the full model, identical params and batch:
+# the dense attend rounds the scores and the softmax weights to bf16
+# (about 2^-9 relative per element), the kernels keep them fp32.  On an
+# H100 that moved the loss (~9.4) by 9.5e-6 and a parameter's gradient
+# norm by at most 2.2e-4 relative; the bounds are 100x and 45x those.
+# They catch a wrong mask or scale: in a 2-layer bf16 LM at d_model 256
+# on the CPU, dropping the causal mask moved the loss by 8.3e-3 and
+# scale 1 by 2.2e-2, against 4.8e-6 for the dense attend.  A kernel that
+# rounds P to bf16 fails its tolerance in the kernel phase instead.
+LOSS_GAP_BOUND = 1e-3
+GRAD_NORM_GAP_BOUND = 1e-2
+
+
+def event_ms(fn, iters):
+    """Mean ms per call of fn() (CUDA events; ``cuda_time_ms`` with one
+    working set)."""
+    return cuda_time_ms(lambda _: fn(), 1, iters)
+
+
+def live_pairs(s_q, s_k, causal):
+    """(query, key) pairs the function needs: top-left causal masking
+    keeps key j for query i when j <= i."""
+    if not causal:
+        return s_q * s_k
+    return sum(min(i + 1, s_k) for i in range(s_q))
+
+
+def flash_bound(name, shape, dtype):
+    """Least time for one launch: the operations its products need over
+    the input type's peak, against each input read once and each output
+    written once over HBM bandwidth."""
+    b, s_q, s_k, h, d, causal = shape
+    elt = torch.finfo(dtype).bits // 8
+    pairs = live_pairs(s_q, s_k, causal)
+    ops = 2 * FLASH_PRODUCTS[name] * b * h * pairs * d
+    rows_q, rows_k = {"flash_forward": (2, 2), "flash_backward_dq": (3, 2),
+                      "flash_backward_dkv": (2, 4)}[name]
+    row_bytes = {"flash_forward": 4, "flash_backward_dq": 8,
+                 "flash_backward_dkv": 8}[name]  # lse (and delta) fp32
+    nbytes = elt * b * h * d * (rows_q * s_q + rows_k * s_k) \
+        + row_bytes * b * h * s_q
+    t_ops = ops / PEAK_OPS_PER_S[dtype]
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def flash_inputs(shape, dtype, seed):
+    b, s_q, s_k, h, d, _ = shape
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn(b, s_q, h, d, generator=g, device="cuda").to(dtype)
+    k = torch.randn(b, s_k, h, d, generator=g, device="cuda").to(dtype)
+    v = torch.randn(b, s_k, h, d, generator=g, device="cuda").to(dtype)
+    do = torch.randn(b, s_q, h, d, generator=g, device="cuda").to(dtype)
+    return q, k, v, do
+
+
+def share_of_tolerance(got, ref):
+    """The largest error as a share of what the tolerance allows there."""
+    tol = fa.tolerance(ref)
+    err = (got.float() - ref.float()).abs()
+    return float((err / (tol["atol"] + tol["rtol"] * ref.float().abs()))
+                 .max())
+
+
+def flash_kernel_phase():
+    """K2, K3 and K4 against their plain versions at every shape in bf16
+    and fp32 (the backward kernels get the plain forward's lse and
+    delta), then timed at the training shape beside their plain
+    versions, scaled_dot_product_attention and their bounds.  Returns
+    the records of the training shape, by dtype then kernel."""
+    rec = {}
+    for shape in FLASH_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v, do = flash_inputs(shape, dtype, SEED + shape[1])
+            scale = q.shape[-1] ** -0.5
+            causal = shape[5]
+            b, s_q, h = q.shape[0], q.shape[1], q.shape[2]
+            ref_out, ref_lse = fa.flash_forward_reference(q, k, v, causal,
+                                                          scale)
+            delta = ((do.float() * ref_out.float()).sum(-1).transpose(1, 2)
+                     .reshape(b * h, s_q).contiguous())
+            args = (q, k, v, do, ref_lse, delta, causal, scale)
+            plain = {
+                "flash_forward": lambda: fa.flash_forward_reference(
+                    q, k, v, causal, scale),
+                "flash_backward_dq": lambda: fa.flash_backward_dq_reference(
+                    *args),
+                "flash_backward_dkv": lambda: fa.flash_backward_dkv_reference(
+                    *args),
+            }
+            kernel = {
+                "flash_forward": lambda: fa.flash_forward(q, k, v, causal,
+                                                          scale),
+                "flash_backward_dq": lambda: fa.flash_backward_dq(*args),
+                "flash_backward_dkv": lambda: fa.flash_backward_dkv(*args),
+            }
+            tag = (f"{'x'.join(map(str, shape[:5]))} "
+                   f"{'causal' if causal else 'non-causal'} "
+                   f"{str(dtype).split('.')[-1]}")
+            main = shape == FLASH_SHAPES[0]
+            for name in FLASH_KERNELS:
+                refs = plain[name]()
+                outs = kernel[name]()
+                torch.cuda.synchronize()
+                refs = refs if isinstance(refs, tuple) else (refs,)
+                outs = outs if isinstance(outs, tuple) else (outs,)
+                err, used = 0.0, 0.0
+                for o, r in zip(outs, refs):
+                    check(o.dtype == r.dtype and o.shape == r.shape,
+                          f"{name} {tag}: output {o.dtype} {tuple(o.shape)}")
+                    torch.testing.assert_close(o, r, **fa.tolerance(r))
+                    err = max(err, float((o.float() - r.float()).abs().max()))
+                    used = max(used, share_of_tolerance(o, r))
+                line = (f"{name} {tag}: max_abs_err={err:.3e}, largest "
+                        f"error {used:.1%} of its tolerance")
+                if main:
+                    ms = event_ms(kernel[name], 10)
+                    plain_ms = event_ms(plain[name], 3)
+                    bound_ms, bound_by = flash_bound(name, shape, dtype)
+                    rec.setdefault(dtype, {})[name] = dict(
+                        max_abs_err=err, share_of_tolerance=used, ms=ms,
+                        plain_ms=plain_ms, bound_ms=bound_ms,
+                        bound_by=bound_by, library_ms=None)
+                    line += (f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms,"
+                             f" bound {bound_ms:.4f} ms ({bound_by}), "
+                             f"{bound_ms / ms:.1%} of bound")
+                log(line)
+                del refs, outs
+            if main and dtype == torch.bfloat16:
+                fwd_ms, bwd_ms = sdpa_train_ms(q, k, v, do)
+                log(f"scaled_dot_product_attention {tag}: forward "
+                    f"{fwd_ms:.4f} ms, backward (dq, dk, dv) {bwd_ms:.4f} ms")
+                rec[dtype]["flash_forward"]["library_ms"] = fwd_ms
+                rec[dtype]["flash_backward_dq"]["library_ms"] = bwd_ms
+                rec[dtype]["flash_backward_dkv"]["library_ms"] = bwd_ms
+            del q, k, v, do, ref_out, ref_lse, delta, args, plain, kernel
+            torch.cuda.empty_cache()
+    census = fa.block_census(TRAIN_SEQ, TRAIN_SEQ, fa.BLOCK_Q, fa.BLOCK_K,
+                             True)
+    live = census["interior"] + census["masked"]
+    log(f"block census at {fa.BLOCK_Q}x{fa.BLOCK_K} tiles, s {TRAIN_SEQ} "
+        f"causal: {json.dumps(census)}; live tiles {live / (live + census['dead']):.2%}"
+        f", live (q, k) pairs "
+        f"{live_pairs(TRAIN_SEQ, TRAIN_SEQ, True) / TRAIN_SEQ ** 2:.2%}")
+    return rec
+
+
+def sdpa_train_ms(q, k, v, do):
+    """The library yardstick (never on the path): causal
+    scaled_dot_product_attention forward, and its backward through
+    torch.autograd.grad, on the same inputs in (b, h, s, d) layout."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v))
+    dot = do.transpose(1, 2).contiguous()
+    with torch.no_grad():
+        fwd_ms = event_ms(lambda: sdpa(qt, kt, vt, is_causal=True), 10)
+    out = sdpa(qt, kt, vt, is_causal=True)
+    bwd_ms = event_ms(lambda: torch.autograd.grad(
+        out, (qt, kt, vt), dot, retain_graph=True), 10)
+    return fwd_ms, bwd_ms
+
+
+def flash_counts():
+    return {name: getattr(fa, name).launches for name in FLASH_KERNELS}
+
+
+def reset_flash_counts():
+    for name in FLASH_KERNELS:
+        getattr(fa, name).launches = 0
+
+
+def grads_of(lm, tokens):
+    """Loss and every parameter's gradient (fp32 copies) of one forward
+    and backward of lm_loss."""
+    lm.zero_grad(set_to_none=True)
+    loss = lm_loss(lm(tokens), tokens)
+    loss.backward()
+    grads = {k: p.grad.detach().clone() for k, p in lm.named_parameters()}
+    lm.zero_grad(set_to_none=True)
+    return float(loss.detach()), grads
+
+
+def flash_vs_dense(lm, tokens):
+    """On identical params and batch: the loss gap and the largest
+    relative gap in a parameter's gradient norm between the flash hook
+    and the dense attend."""
+    loss_f, g_f = grads_of(lm, tokens)
+    hooks = [blk.attn.attention_fn for blk in lm.blocks]
+    for blk in lm.blocks:
+        blk.attn.attention_fn = None
+    try:
+        loss_d, g_d = grads_of(lm, tokens)
+    finally:
+        for blk, fn in zip(lm.blocks, hooks):
+            blk.attn.attention_fn = fn
+    gap = 0.0
+    for key in g_f:
+        nf, nd = float(g_f[key].norm()), float(g_d[key].norm())
+        gap = max(gap, abs(nf - nd) / max(nd, 1e-30))
+    return abs(loss_f - loss_d), gap, loss_f, loss_d
+
+
+def profile_train_step(step, tokens):
+    """Device time of one training step by kernel (torch.profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(tokens)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
+    return busy, wall, sum(e.count for e in kernels), top
+
+
+def train_phase():
+    """The main training path: the full-width TransformerLM through
+    create_communicator -> bcast_data -> create_multi_node_optimizer ->
+    build_train_step on a 1-rank NCCL group, every flash kernel count
+    set to 0 just before the timed steps and read just after."""
+    import torch.distributed as dist
+
+    from chainermn_tpu_torch import (build_train_step, create_communicator,
+                                     create_multi_node_optimizer)
+    from chainermn_tpu_torch.models import flax_ordered_parameters
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        comm = create_communicator("pure_nccl")
+        t0 = time.perf_counter()
+        check(comm.device == torch.device("cuda", 0), f"{comm.device}")
+        lm = TransformerLM(VOCAB, D_MODEL, N_HEADS, N_LAYERS,
+                           max_len=MAX_LEN, dtype=torch.bfloat16, seed=SEED,
+                           attention_fn=fa.flash_attention_fn()
+                           ).to(comm.device)
+        comm.bcast_data(lm)
+        opt = create_multi_node_optimizer(
+            torch.optim.AdamW([p for _, p in flax_ordered_parameters(lm)],
+                              lr=3e-4, betas=(0.9, 0.999), eps=1e-8,
+                              weight_decay=0.01), comm)
+        plan = opt.wire_plan()
+        log(f"train: {comm!r}, backend {comm.backend}; wire "
+            f"{opt.wire.codec}, {plan.describe()}; set up in "
+            f"{time.perf_counter() - t0:.1f}s")
+        step = build_train_step(comm, lambda t: lm_loss(lm(t), t), opt)
+        tokens = torch.from_numpy(np.random.RandomState(SEED).randint(
+            0, VOCAB, (TRAIN_BATCH, TRAIN_SEQ))).to(comm.device)
+
+        for _ in range(TRAIN_WARMUP):
+            check(np.isfinite(float(step(tokens)["loss"])),
+                  "warm-up loss not finite")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        # the main path: every count set to 0 just before, read just after
+        reset_flash_counts()
+        losses, times = [], []
+        for _ in range(TRAIN_STEPS):
+            t = time.perf_counter()
+            m = step(tokens)
+            losses.append(float(m["loss"]))  # reads the loss: synchronizes
+            times.append(time.perf_counter() - t)
+        launches = flash_counts()
+        peak = torch.cuda.max_memory_allocated()
+        for name, n in launches.items():
+            check(n == N_LAYERS * TRAIN_STEPS,
+                  f"{name} launches {n} != {N_LAYERS} x {TRAIN_STEPS} steps")
+        check(all(np.isfinite(losses)), f"non-finite loss: {losses}")
+        step_ms = [1e3 * t for t in times]
+        mean_ms = float(np.mean(step_ms))
+        tps = TRAIN_BATCH * TRAIN_SEQ / (mean_ms / 1e3)
+        log(f"train: {TRAIN_STEPS} steps of {TRAIN_BATCH}x{TRAIN_SEQ} tokens:"
+            f" losses {losses}; step ms {[round(t, 3) for t in step_ms]} "
+            f"(mean {mean_ms:.3f}); {tps:.1f} tokens/s; peak memory "
+            f"{peak / 2**30:.2f} GiB; launches {json.dumps(launches)} = "
+            f"n_layers x steps ({N_LAYERS} x {TRAIN_STEPS})")
+
+        busy, wall, n_kernels, top = profile_train_step(step, tokens)
+        log(f"profile train step: device busy {busy:.3f} ms in {n_kernels} "
+            f"kernel launches over the profiled step's {wall:.3f} ms (host "
+            f"clock; unprofiled mean {mean_ms:.3f} ms); idle share "
+            f"{1 - busy / wall:.1%}")
+        for e in top:
+            log(f"  {e.self_device_time_total / 1e3:9.3f} ms x{e.count:<4d} "
+                f"{e.key[:90]}")
+
+        loss_gap, grad_gap, loss_f, loss_d = flash_vs_dense(lm, tokens)
+        log(f"flash vs dense attend on identical params and batch: loss "
+            f"{loss_f:.6f} vs {loss_d:.6f}, gap {loss_gap:.3e} (bound "
+            f"{LOSS_GAP_BOUND}); largest relative gradient-norm gap "
+            f"{grad_gap:.3e} (bound {GRAD_NORM_GAP_BOUND})")
+        check(loss_gap <= LOSS_GAP_BOUND, f"flash vs dense loss gap {loss_gap}")
+        check(grad_gap <= GRAD_NORM_GAP_BOUND,
+              f"flash vs dense gradient-norm gap {grad_gap}")
+        return {"launches": launches, "steps": TRAIN_STEPS,
+                "losses": losses, "step_ms": step_ms,
+                "tokens_per_s": tps, "peak_gib": peak / 2**30,
+                "device_busy_ms": busy, "profiled_step_ms": wall,
+                "idle_share": 1 - busy / wall, "loss_gap": loss_gap,
+                "grad_norm_gap": grad_gap}
+    finally:
+        dist.destroy_process_group()
+
+
+def build_all():
+    """Every kernel source built from the checkout, in parallel (one
+    nvcc each); prints build time, registers, shared memory and spills
+    per kernel."""
+    import re
+    from concurrent.futures import ThreadPoolExecutor
+
+    names = ("flash_decode", "flash_attention")
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(names)) as pool:
+        texts = dict(zip(names, pool.map(_build.build, names)))
+    log(f"build: {', '.join(names)} in {time.perf_counter() - t0:.2f}s "
+        f"(in parallel)")
+    for name, text in texts.items():
+        kernel = None
+        for line in text.splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                k = re.search(r"(flash_[a-z_]+_kernel)I(13__nv_bfloat16|f)Li(\d+)E",
+                              m.group(1))
+                kernel = (f"{k.group(1)}<{'bf16' if k.group(2) != 'f' else 'f32'},"
+                          f"{k.group(3)}>" if k else m.group(1)[:60])
+            elif "registers" in line or "spill" in line:
+                log(f"  {name} {kernel}: {line.strip()}")
+    log("  flash_attention dynamic shared memory a block: " + ", ".join(
+        f"{k} d{d} {fa.smem_bytes(k, d)} bytes"
+        for k in ("forward", "backward") for d in (64, 128)))
+
+
+def kernel_record(name, source, replaces, launches, r, dtype):
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "dtype": dtype, "share_of_tolerance": r["share_of_tolerance"]}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on an "
@@ -440,12 +830,7 @@ def main():
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
 
-    t0 = time.perf_counter()
-    text = _build.build("flash_decode")
-    log(f"build: flash_decode in {time.perf_counter() - t0:.2f}s")
-    for line in text.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  flash_decode: {line.strip()}")
+    build_all()
 
     rng = np.random.RandomState(SEED + 1)
     lengths = (rng.randint(PROMPT_MIN, PROMPT_MAX + NEW_TOKENS + 1,
@@ -453,27 +838,26 @@ def main():
     lengths[3] = 0  # a padded slot
     log(f"flash_decode lengths: {lengths}")
     kern = kernel_phase(lengths)
-    main_path = serve_phase()
+    serve_path = serve_phase()
+    flash = flash_kernel_phase()
+    train_path = train_phase()
 
-    log("serve summary: " + json.dumps(main_path))
+    log("serve summary: " + json.dumps(serve_path))
+    log("train summary: " + json.dumps(train_path))
     log("flash_decode float32: " + json.dumps(kern[torch.float32]))
-    # the kernels' record: the main path's type (bf16) at the serving shapes
-    bf16 = kern[torch.bfloat16]
-    print(json.dumps({"kernels": [{
-        "name": "flash_decode",
-        "route": "cuda",
-        "source": "chainermn_tpu_torch/ops/csrc/flash_decode.cu",
-        "replaces": "chainermn_tpu/ops/pallas_attention.py:1271",
-        "launches": main_path["launches"],
-        "max_abs_err": bf16["max_abs_err"],
-        "ms": bf16["ms"],
-        "plain_ms": bf16["plain_ms"],
-        "bound_ms": bf16["bound_ms"],
-        "bound_by": bf16["bound_by"],
-        "library_ms": bf16["library_ms"],
-        "dtype": "bfloat16",
-        "tolerance": TOLERANCE[torch.bfloat16],
-    }]}), flush=True)
+    log("flash attention float32: " + json.dumps(flash[torch.float32]))
+    # the kernels' record: each main path's type (bf16) at its shapes
+    records = [kernel_record(
+        "flash_decode", "chainermn_tpu_torch/ops/csrc/flash_decode.cu",
+        "chainermn_tpu/ops/pallas_attention.py:1271",
+        serve_path["launches"], kern[torch.bfloat16], "bfloat16")]
+    records[0]["tolerance"] = TOLERANCE[torch.bfloat16]
+    for name in FLASH_KERNELS:
+        records.append(kernel_record(
+            name, "chainermn_tpu_torch/ops/csrc/flash_attention.cu",
+            FLASH_REPLACES[name], train_path["launches"][name],
+            flash[torch.bfloat16][name], "bfloat16"))
+    print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

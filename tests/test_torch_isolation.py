@@ -1,7 +1,7 @@
 """The port stands alone: no module of ``chainermn_tpu_torch`` and not
 ``chip_smoke.py`` imports JAX, flax, optax or the JAX package, importing
-the package loads no subpackage, and the serving path runs with those
-modules made unimportable."""
+the package loads no subpackage, and the serving and training paths run
+with those modules made unimportable."""
 
 import ast
 import os
@@ -68,6 +68,26 @@ eng = DecodeEngine(lm, capacity=2, page_size=8, attention_impl="flash",
 out = ContinuousBatcher(eng).serve([Request([1, 2, 3], 4),
                                     Request([4, 5], 3)])
 assert [r.state for r in out] == ["done", "done"]
+
+import numpy as np
+import torch
+import torch.distributed as dist
+from chainermn_tpu_torch.models import flax_ordered_parameters, lm_loss
+from chainermn_tpu_torch.ops import flash_attention_fn
+
+dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                        world_size=1)
+comm = chainermn_tpu_torch.create_communicator("pure_nccl")
+lm = TransformerLM(64, 64, 1, 1, max_len=16, attention_fn=flash_attention_fn())
+opt = chainermn_tpu_torch.create_multi_node_optimizer(torch.optim.AdamW(
+    [p for _, p in flax_ordered_parameters(lm)], lr=1e-3), comm)
+step = chainermn_tpu_torch.build_train_step(
+    comm, lambda t: lm_loss(lm(t), t), opt)
+data = chainermn_tpu_torch.scatter_dataset(
+    np.arange(64).reshape(4, 16) % 64, comm, shuffle=True, seed=0)
+toks = torch.from_numpy(np.stack([data[i] for i in range(2)]))
+assert np.isfinite(float(step(toks)["loss"]))
+dist.destroy_process_group()
 assert not any(m.split(".")[0] in BANNED for m in sys.modules)
 print("ok")
 """

@@ -86,3 +86,157 @@ def test_engine_flash_matches_dense_on_card():
                                    torch.from_numpy(a), rtol=1e-4, atol=1e-4)
         t = int(a.argmax())
     assert flash_decode.launches == before + 6 * 2
+
+
+# --- flash attention for training: K2 (forward), K3 (dq), K4 (dk/dv) ---
+
+# (batch, s_q, s_k, heads, d, causal): the training path's shape, a
+# ragged causal one, a non-causal cross one, and d = 64 (the same shapes
+# as chip_smoke.py's kernel phase, plus the second head dim)
+FLASH_SHAPES = [
+    (8, 2048, 2048, 8, 128, True),
+    (2, 2000, 2000, 8, 128, True),
+    (2, 1000, 1500, 8, 128, False),
+    (2, 1000, 1000, 4, 64, True),
+]
+
+
+def _flash_inputs(shape, dtype, seed):
+    b, s_q, s_k, h, d, _ = shape
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn(b, s_q, h, d, generator=g, device="cuda").to(dtype)
+    k = torch.randn(b, s_k, h, d, generator=g, device="cuda").to(dtype)
+    v = torch.randn(b, s_k, h, d, generator=g, device="cuda").to(dtype)
+    do = torch.randn(b, s_q, h, d, generator=g, device="cuda").to(dtype)
+    return q, k, v, do
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", FLASH_SHAPES,
+                         ids=lambda s: "x".join(map(str, s[:5]))
+                         + ("c" if s[5] else "n"))
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_flash_attention_kernels_match_plain_versions(dtype, shape):
+    """K2, K3 and K4 against their plain versions on the same inputs
+    (the backward kernels get the plain forward's lse and delta), with
+    ``flash_attention.tolerance``: 2^-13 of the output's scale for the
+    fp32 summation order, plus one bf16 ulp of each element in bf16."""
+    _need_card()
+    from chainermn_tpu_torch.ops import flash_attention as fa
+
+    dt = getattr(torch, dtype)
+    causal = shape[5]
+    q, k, v, do = _flash_inputs(shape, dt, seed=shape[1])
+    scale = q.shape[-1] ** -0.5
+    ref_out, ref_lse = fa.flash_forward_reference(q, k, v, causal, scale)
+    n0 = (fa.flash_forward.launches, fa.flash_backward_dq.launches,
+          fa.flash_backward_dkv.launches)
+    out, lse = fa.flash_forward(q, k, v, causal, scale)
+    torch.testing.assert_close(out, ref_out, **fa.tolerance(ref_out))
+    torch.testing.assert_close(lse, ref_lse, **fa.tolerance(ref_lse))
+    b, s_q, h, _ = q.shape
+    delta = ((do.float() * ref_out.float()).sum(-1).transpose(1, 2)
+             .reshape(b * h, s_q).contiguous())
+    ref_dq = fa.flash_backward_dq_reference(q, k, v, do, ref_lse, delta,
+                                            causal, scale)
+    ref_dk, ref_dv = fa.flash_backward_dkv_reference(
+        q, k, v, do, ref_lse, delta, causal, scale)
+    dq = fa.flash_backward_dq(q, k, v, do, ref_lse, delta, causal, scale)
+    dk, dv = fa.flash_backward_dkv(q, k, v, do, ref_lse, delta, causal,
+                                   scale)
+    torch.cuda.synchronize()
+    for got, ref in ((dq, ref_dq), (dk, ref_dk), (dv, ref_dv)):
+        assert got.dtype == dt and got.shape == ref.shape
+        torch.testing.assert_close(got, ref, **fa.tolerance(ref))
+    assert (fa.flash_forward.launches, fa.flash_backward_dq.launches,
+            fa.flash_backward_dkv.launches) == tuple(n + 1 for n in n0)
+
+
+@pytest.mark.cuda
+def test_flash_tolerance_rejects_bf16_probabilities():
+    """Negative control: a plain forward that rounds P to bf16 before
+    P.V must fail the tolerance the kernel is held to."""
+    _need_card()
+    from chainermn_tpu_torch.ops import flash_attention as fa
+
+    shape = FLASH_SHAPES[0]
+    q, k, v, _ = _flash_inputs(shape, torch.bfloat16, seed=shape[1])
+    scale = q.shape[-1] ** -0.5
+    ref, _ = fa.flash_forward_reference(q, k, v, True, scale)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    s = s.masked_fill(~fa._causal_mask(s.shape[-2], s.shape[-1], s.device),
+                      -1e30)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    p = p / p.sum(-1, keepdim=True)
+    rounded = torch.einsum("bhqk,bkhd->bqhd", p.bfloat16().float(),
+                           v.float()).bfloat16()
+    with pytest.raises(AssertionError):
+        torch.testing.assert_close(rounded, ref, **fa.tolerance(ref))
+
+
+@pytest.mark.cuda
+def test_flash_attention_autograd_on_card():
+    """The differentiable entry points on the card: every gradient of
+    flash_attention (and of flash_attention_with_lse with an lse
+    cotangent) against autograd through the plain dense attention,
+    each kernel launched once per call."""
+    _need_card()
+    from chainermn_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, do = _flash_inputs((2, 300, 300, 4, 64, True), torch.float32, 1)
+    g_lse = torch.randn(2, 300, 4, device="cuda")
+    for with_lse in (False, True):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        ref_leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        n0 = fa.flash_backward_dkv.launches
+        if with_lse:
+            out, lse = fa.flash_attention_with_lse(*leaves, causal=True)
+            ref_out, ref_lse = fa.dense_attention_with_lse(*ref_leaves,
+                                                           causal=True)
+            loss = (out * do).sum() + (lse * g_lse).sum()
+            ref_loss = (ref_out * do).sum() + (ref_lse * g_lse).sum()
+        else:
+            out = fa.flash_attention(*leaves, causal=True)
+            ref_out, _ = fa.dense_attention_with_lse(*ref_leaves,
+                                                     causal=True)
+            loss, ref_loss = (out * do).sum(), (ref_out * do).sum()
+        grads = torch.autograd.grad(loss, leaves)
+        ref_grads = torch.autograd.grad(ref_loss, ref_leaves)
+        for got, ref in zip(grads, ref_grads):
+            torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
+        assert fa.flash_backward_dkv.launches == n0 + 1
+
+
+@pytest.mark.cuda
+def test_dp_train_step_across_cards():
+    """The data-parallel step over NCCL on up to 4 cards of one host
+    (needs 2): one process per card, bcast_data, scatter_dataset shards,
+    the bucketed all-reduce, AdamW.  Every rank ends with bit-identical
+    parameters, the same mean losses, all finite, and each step launched
+    the flash forward once per layer."""
+    _need_card()
+    n = min(torch.cuda.device_count(), 4)
+    if n < 2:
+        pytest.skip("needs 2 or more cards of one host")
+    import numpy as np
+
+    import test_torch_world as torch_world
+    from chainermn_tpu_torch.models import TransformerLM
+
+    cfg = dict(vocab=512, d_model=256, n_heads=2, n_layers=2, max_len=256,
+               batch=2 * n, seed=3)
+    lm = TransformerLM(cfg["vocab"], cfg["d_model"], cfg["n_heads"],
+                       cfg["n_layers"], max_len=cfg["max_len"], seed=1)
+    state = {k: v.numpy() for k, v in lm.state_dict().items()}
+    dataset = np.random.RandomState(0).randint(0, cfg["vocab"],
+                                               (cfg["batch"] * 3, 256))
+    ranks = torch_world.run_world(torch_world.dp_card_worker, n, cfg, state,
+                                  dataset, 3, timeout=300, backend="nccl")
+    for r, res in enumerate(ranks):
+        assert res["device"] == f"cuda:{r}"
+        assert res["launches"] == cfg["n_layers"] * 3
+        assert res["losses"] == ranks[0]["losses"]
+        assert np.all(np.isfinite(res["losses"]))
+        for k, v in res["params"].items():
+            np.testing.assert_array_equal(v, ranks[0]["params"][k],
+                                          err_msg=k)

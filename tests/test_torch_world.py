@@ -1,0 +1,323 @@
+"""A real small world of the PyTorch port: N spawned processes joined
+in one process group (gloo on the CPU, NCCL across cards), each running
+a worker function of this module.
+
+Parity: the reference's distributed tests are real multi-process runs
+(``mpiexec -n 2 pytest``); the port keeps ChainerMN's process model (one
+process per card), so its tests spawn ``world_size`` processes, each
+calling ``torch.distributed.init_process_group("gloo", ...)`` on a
+``file://`` store in a temporary directory.  The module imports only
+torch, numpy and the port, so the workers start without JAX.
+
+``run_world(worker, world_size, *args, timeout=...)`` returns each
+rank's return value, in rank order; a worker's exception, a dead
+worker, or a world that outlives ``timeout`` fails the caller (the
+processes are killed), so a hang fails one test instead of the whole
+run's clock.  The tests at the end of this module pin that; the other
+``test_torch_*`` files import the module for ``run_world`` and its
+workers.
+"""
+
+from __future__ import annotations
+
+import datetime
+import os
+import queue
+import tempfile
+import time
+import traceback
+
+import numpy as np
+import pytest
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+
+def _entry(worker, rank, world_size, init, args, results, env, timeout,
+           backend):
+    os.environ.update(env)
+    torch.set_num_threads(1)
+    try:
+        if backend == "nccl":
+            torch.cuda.set_device(rank)  # one card per rank
+        dist.init_process_group(
+            backend, init_method=init, rank=rank, world_size=world_size,
+            timeout=datetime.timedelta(seconds=timeout))
+        try:
+            out = worker(rank, world_size, *args)
+        finally:
+            dist.destroy_process_group()
+        results.put((rank, True, out))
+    except BaseException:  # reported to the parent, which fails the test
+        results.put((rank, False, traceback.format_exc()))
+
+
+def run_world(worker, world_size: int, *args, timeout: float = 180.0,
+              env=None, backend: str = "gloo") -> list:
+    """Run ``worker(rank, world_size, *args)`` in ``world_size``
+    processes of one ``backend`` group (``"nccl"``: rank r on card r);
+    return their results in rank order."""
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    deadline = time.monotonic() + timeout
+    with tempfile.TemporaryDirectory() as tmp:
+        init = "file://" + os.path.join(tmp, "store")
+        procs = [ctx.Process(target=_entry,
+                             args=(worker, r, world_size, init, args,
+                                   results, dict(env or {}), timeout,
+                                   backend),
+                             daemon=True)
+                 for r in range(world_size)]
+        for p in procs:
+            p.start()
+        out = {}
+        finished = False
+        try:
+            while len(out) < world_size:
+                left = deadline - time.monotonic()
+                if left <= 0:
+                    raise TimeoutError(
+                        f"world of {world_size} did not finish within "
+                        f"{timeout:.0f} s (ranks done: {sorted(out)})")
+                try:
+                    rank, ok, payload = results.get(timeout=min(left, 1.0))
+                except queue.Empty:
+                    dead = [r for r, p in enumerate(procs)
+                            if not p.is_alive() and r not in out
+                            and p.exitcode not in (0, None)]
+                    if dead:
+                        raise RuntimeError(f"ranks {dead} died (exit codes "
+                                           f"{[procs[r].exitcode for r in dead]})")
+                    continue
+                if not ok:
+                    raise RuntimeError(f"rank {rank} failed:\n{payload}")
+                out[rank] = payload
+            finished = True
+        finally:
+            # a failed world is killed at once; a finished one exits
+            for p in procs:
+                if finished:
+                    p.join(timeout=max(deadline - time.monotonic(), 1.0))
+                if p.is_alive():
+                    p.kill()
+                    p.join(timeout=5)
+        assert not any(p.is_alive() for p in procs)
+    return [out[r] for r in range(world_size)]
+
+
+# ----------------------------------------------------------------------
+# Workers
+# ----------------------------------------------------------------------
+def collectives_worker(rank, world_size, inputs, names):
+    """Every ported communicator's collectives on this rank's row of the
+    shared inputs; the rank model with and without the fake-node knob."""
+    from chainermn_tpu_torch.communicators import (
+        FAKE_NODE_SIZE_ENV, create_communicator)
+
+    t = {k: torch.from_numpy(v) for k, v in inputs.items()}
+    out = {}
+    for name in names:
+        comm = create_communicator(name)
+        x = t["x"][rank]
+        res = {
+            "rank": comm.rank, "size": comm.size, "device": str(comm.device),
+            "intra": (comm.intra_rank, comm.intra_size),
+            "inter": (comm.inter_rank, comm.inter_size),
+            "allreduce": {op: comm.allreduce(t[f"x_{op}"][rank], op).numpy()
+                          for op in ("sum", "mean", "max", "min", "prod")},
+            "bcast": {root: comm.bcast(x, root).numpy() for root in (0, 3)},
+            "allgather": comm.allgather(x).numpy(),
+            "gather": comm.gather(x, root=2),
+            "scatter": comm.scatter(t["x"] if rank == 1 else None,
+                                    root=1).numpy(),
+            "alltoall": comm.alltoall(t["a2a"][rank]).numpy(),
+            "reduce_scatter": comm.reduce_scatter(t["rs"][rank]).numpy(),
+            "multidim": comm.allreduce(t["x45"][rank]).numpy(),
+            "bcast_obj": comm.bcast_obj({"from": rank}, root=3),
+            "gather_obj": comm.gather_obj(rank * 10, root=0),
+            "allgather_obj": comm.allgather_obj(("r", rank)),
+            "allreduce_obj": comm.allreduce_obj(rank + 1),
+        }
+        if res["gather"] is not None:
+            res["gather"] = res["gather"].numpy()
+        model = torch.nn.Linear(3, 2)
+        with torch.no_grad():
+            model.weight.fill_(float(rank))
+        comm.bcast_data(model)
+        model.weight.grad = t["grad"][rank].clone()
+        comm.allreduce_grad(model)
+        res["bcast_data"] = model.weight.detach().numpy()
+        res["allreduce_grad"] = model.weight.grad.numpy()
+        comm.barrier()
+        out[name] = res
+    os.environ[FAKE_NODE_SIZE_ENV] = "2"
+    fake = create_communicator("flat")
+    out["fake_nodes"] = {
+        "intra": (fake.intra_rank, fake.intra_size),
+        "inter": (fake.inter_rank, fake.inter_size),
+        "keys": fake.topology.node_keys,
+    }
+    try:
+        create_communicator("single_node")
+        out["single_node_raised"] = False
+    except ValueError:
+        out["single_node_raised"] = True
+    return out
+
+
+def wire_worker(rank, world_size, buckets):
+    """``reduce_buckets`` of this rank's row of each bucket, per codec."""
+    from chainermn_tpu_torch.comm_wire import WireConfig, reduce_buckets
+
+    mine = [b[rank].clone() for b in buckets]
+    out = {}
+    for codec in ("none", "f32", "bf16", "f16"):
+        means = reduce_buckets(mine, world_size, WireConfig(codec=codec))
+        out[codec] = [(m.float().numpy(), str(m.dtype)) for m in means]
+    return out
+
+
+def _lm(cfg, state, dtype):
+    from chainermn_tpu_torch.models import TransformerLM
+    from chainermn_tpu_torch.ops import flash_attention_fn
+
+    lm = TransformerLM(cfg["vocab"], cfg["d_model"], cfg["n_heads"],
+                       cfg["n_layers"], max_len=cfg["max_len"],
+                       dtype=getattr(torch, dtype),
+                       attention_fn=flash_attention_fn())
+    lm.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()})
+    return lm
+
+
+def training_worker(rank, world_size, cfg, state, dataset, steps, dtype):
+    """The port's training path at world size 2: the data-parallel run
+    the JAX step is compared with, then the non-finite guard."""
+    import chainermn_tpu_torch as cmn
+    from chainermn_tpu_torch.models import flax_ordered_parameters, lm_loss
+    from chainermn_tpu_torch.resilience import StepDivergedError
+
+    comm = cmn.create_communicator("pure_nccl")
+    # rank 1 starts from other weights: bcast_data must overwrite them
+    lm = _lm(cfg, state, dtype)
+    if rank:
+        with torch.no_grad():
+            for p in lm.parameters():
+                p.add_(1.0)
+    comm.bcast_data(lm)
+    shard = cmn.scatter_dataset(dataset, comm, shuffle=True, seed=cfg["seed"])
+    inner = torch.optim.AdamW([p for _, p in flax_ordered_parameters(lm)],
+                              lr=3e-4, betas=(0.9, 0.999), eps=1e-8,
+                              weight_decay=0.01)
+    opt = cmn.create_multi_node_optimizer(inner, comm)
+    step = cmn.build_train_step(
+        comm, lambda toks: lm_loss(lm(toks), toks), opt)
+    per = cfg["batch"] // world_size
+    losses = []
+    for i in range(steps):
+        rows = [shard[j] for j in range(i * per, (i + 1) * per)]
+        toks = torch.from_numpy(np.stack(rows).astype(np.int64))
+        losses.append(float(step(toks)["loss"]))
+    result = {
+        "indices": shard.indices.copy(),
+        "losses": losses,
+        "params": {k: v.detach().float().numpy().copy()
+                   for k, v in lm.state_dict().items()},
+        "plan_hash": opt.wire_plan().plan_hash(),
+    }
+
+    # the non-finite guard: rank 1 alone sees a NaN loss; both ranks
+    # must agree to skip (params unchanged) or, under "abort", to raise
+    poison = {"on": True}
+
+    def loss_fn(toks):
+        loss = lm_loss(lm(toks), toks)
+        if poison["on"] and rank == 1:
+            loss = loss * float("nan")
+        return loss
+
+    toks = torch.from_numpy(np.stack([shard[0]] * per).astype(np.int64))
+    before = {k: v.detach().clone() for k, v in lm.state_dict().items()}
+    skip = cmn.build_train_step(comm, loss_fn, opt, nonfinite="skip")
+    m = skip(toks)
+    result["skip_finite"] = m["grads_finite"]
+    result["skip_unchanged"] = all(
+        torch.equal(before[k], v) for k, v in lm.state_dict().items())
+    try:
+        cmn.build_train_step(comm, loss_fn, opt, nonfinite="abort")(toks)
+        result["abort_raised"] = False
+    except StepDivergedError:
+        result["abort_raised"] = True
+    poison["on"] = False
+    m = skip(toks)
+    result["clean_finite"] = m["grads_finite"]
+    result["clean_changed"] = not all(
+        torch.equal(before[k], v) for k, v in lm.state_dict().items())
+
+    # a hand-written loop: backward, then the optimizer's own step (sync,
+    # then AdamW); ranks fed different rows stay equal
+    opt.zero_grad(set_to_none=True)
+    mine = toks if rank == 0 else toks.flip(1)
+    lm_loss(lm(mine), mine).backward()
+    opt.step()
+    result["manual_params"] = {k: v.detach().numpy().copy()
+                               for k, v in lm.state_dict().items()}
+    return result
+
+
+def dp_card_worker(rank, world_size, cfg, state, dataset, steps):
+    """The data-parallel step on this rank's card (or the CPU in a gloo
+    world): bf16 LM with the flash hook, shards from scatter_dataset,
+    AdamW through the multi-node optimizer."""
+    import chainermn_tpu_torch as cmn
+    from chainermn_tpu_torch.models import flax_ordered_parameters, lm_loss
+    from chainermn_tpu_torch.ops import flash_attention as fa
+
+    comm = cmn.create_communicator("pure_nccl")
+    lm = _lm(cfg, state, "bfloat16").to(comm.device)
+    comm.bcast_data(lm)
+    shard = cmn.scatter_dataset(dataset, comm, shuffle=True, seed=cfg["seed"])
+    opt = cmn.create_multi_node_optimizer(torch.optim.AdamW(
+        [p for _, p in flax_ordered_parameters(lm)], lr=3e-4, eps=1e-8,
+        weight_decay=0.01), comm)
+    step = cmn.build_train_step(comm, lambda t: lm_loss(lm(t), t), opt)
+    per = cfg["batch"] // world_size
+    n0 = fa.flash_forward.launches
+    losses = []
+    for i in range(steps):
+        rows = [shard[j] for j in range(i * per, (i + 1) * per)]
+        toks = torch.from_numpy(np.stack(rows).astype(np.int64))
+        losses.append(float(step(toks.to(comm.device))["loss"]))
+    return {"device": str(comm.device), "losses": losses,
+            "launches": fa.flash_forward.launches - n0,
+            "params": {k: v.detach().float().cpu().numpy()
+                       for k, v in lm.state_dict().items()}}
+
+
+# ----------------------------------------------------------------------
+# The harness itself
+# ----------------------------------------------------------------------
+def _raising_worker(rank, world_size):
+    if rank == 1:
+        raise ValueError("rank 1 fails on purpose")
+    return rank
+
+
+def _sleeping_worker(rank, world_size, seconds):
+    time.sleep(seconds)
+    return rank
+
+
+def test_run_world_returns_ranks_in_order():
+    assert run_world(_sleeping_worker, 3, 0.0, timeout=60) == [0, 1, 2]
+
+
+def test_run_world_fails_fast_on_a_worker_error_or_a_hang():
+    """A worker's exception fails the caller with its traceback, and a
+    world that outlives its timeout is killed."""
+    t0 = time.monotonic()
+    with pytest.raises(RuntimeError, match="rank 1 fails on purpose"):
+        run_world(_raising_worker, 2, timeout=60)
+    with pytest.raises(TimeoutError, match="did not finish within 3 s"):
+        run_world(_sleeping_worker, 2, 600.0, timeout=3)
+    assert time.monotonic() - t0 < 50

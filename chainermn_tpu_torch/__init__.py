@@ -19,13 +19,20 @@ Ported so far: the serving path (``serving.PagedKVCache``,
 data-parallel training path (``create_communicator`` ->
 ``scatter_dataset`` -> ``create_multi_node_optimizer`` ->
 ``build_train_step``, one process per card) with the flash-attention
-forward and backward kernels (``ops.flash_attention``).
+forward and backward kernels (``ops.flash_attention``); and the
+data-parallel image path of ChainerMN's examples (``models.MLP``,
+``models.ResNet50``, ``iterators``, ``training.Trainer``,
+``create_multi_node_evaluator``, ``examples.train_mnist`` and
+``examples.train_imagenet``) with the reduced-precision gradient wire
+on the ``ops.fused_cast_scale`` kernel.
 """
 
 import importlib
 
-_SUBPACKAGES = ("comm_wire", "communicators", "datasets", "models",
-                "observability", "ops", "resilience", "serving")
+_SUBPACKAGES = ("comm_wire", "communicators", "datasets", "examples",
+                "extensions", "global_except_hook", "iterators", "models",
+                "observability", "ops", "resilience", "serving", "training",
+                "utils")
 
 # top-level entry points, as chainermn_tpu exports them: name -> module
 _ENTRY_POINTS = {
@@ -33,6 +40,7 @@ _ENTRY_POINTS = {
     "create_multi_node_optimizer": "optimizers",
     "build_train_step": "optimizers",
     "scatter_dataset": "datasets",
+    "create_multi_node_evaluator": "extensions",
 }
 
 __all__ = list(_SUBPACKAGES) + list(_ENTRY_POINTS)

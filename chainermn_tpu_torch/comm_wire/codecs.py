@@ -16,11 +16,15 @@ f16       2               cast -> all-reduce -> cast back -> /n
 
 The mean divide happens AFTER casting back to the bucket's native
 dtype, ``sum(cast(g)).to(native) / n``, as in the JAX package
-(codecs.py:195-197): dividing on the wire would round twice.  The casts
-are ``Tensor.to``, as XLA's converts are in the JAX package.  ``int8``
-with error feedback, and the fused cast/scale kernel inside the wire,
-wait for the data-parallel wire slice (ROADMAP Queue 1, "Gradient wire,
-tier 1b").
+(codecs.py:195-197): dividing on the wire would round twice.  Both cast
+legs run through the hand-written ``fused_cast_scale`` kernel (K1,
+``ops/fused_cast_scale.py``), where XLA fuses the converts in the JAX
+package: to the wire with scale 1, and back with the divide folded in
+as a multiply by ``1/n`` where that is exact (see
+:func:`reduce_buckets`).  A codec whose wire dtype is the bucket's own
+(``none``, and ``f32`` over fp32 buckets) casts nothing and launches no
+kernel.  ``int8`` and error feedback wait for the next wire slice
+(ROADMAP Queue 1, "Gradient wire, tier 1b").
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ from typing import List, NamedTuple, Optional, Sequence
 import torch
 import torch.distributed as dist
 
+from ..ops.fused_cast_scale import fused_cast_scale
 from .planner import DEFAULT_BUCKET_BYTES, DEFAULT_MAX_BUCKETS
 
 CODECS = ("none", "f32", "bf16", "f16")
@@ -94,18 +99,44 @@ def resolve_wire(wire, comm) -> WireConfig:
     )
 
 
+def _fuses_divide(n: int, native: torch.dtype) -> bool:
+    """Whether the cast back may multiply by ``1/n`` in place of the
+    JAX order, cast back *then* divide (see :func:`reduce_buckets`)."""
+    return native == torch.float32 and n > 0 and n & (n - 1) == 0
+
+
 def reduce_buckets(buckets: Sequence[torch.Tensor], n: int,
                    config: WireConfig, group=None) -> List[torch.Tensor]:
     """Mean-reduce flat wire buckets over the ``n`` ranks of ``group``
     with the configured codec: one all-reduce per bucket.  Returns the
     means in each bucket's native dtype (new tensors; the inputs are
-    not modified)."""
+    not modified).
+
+    A cast codec launches ``fused_cast_scale`` twice per bucket: to the
+    wire dtype, then back.  The JAX order is cast back, *then* divide
+    by ``n``; the kernel multiplies by a scale in fp32.  For an fp32
+    bucket with ``n`` a power of two the two agree bit for bit: the
+    wire value is exact in fp32 and ``1/n`` is exact, so ``x * (1/n)``
+    and ``x / n`` are one real number, rounded once either way; the
+    divide is fused into the cast back.  Otherwise the kernel casts
+    back with scale 1 and the divide follows it: ``1/3`` is inexact,
+    and a bf16 or fp16 bucket rounds on the cast back, so folding the
+    divide in would skip the JAX order's second rounding where ``x/n``
+    leaves the type's normal range (fp16 gradients below 2^-14 * n)."""
     wire_dtype: Optional[torch.dtype] = _CAST_WIRE.get(config.codec)
     if config.codec not in CODECS:
         raise ValueError(f"unknown wire codec {config.codec!r}")
     means = []
     for g in buckets:
-        w = g.clone() if wire_dtype is None else g.to(wire_dtype, copy=True)
+        if wire_dtype is None or wire_dtype == g.dtype:
+            w = g.clone()
+            dist.all_reduce(w, group=group)
+            means.append(w / n)
+            continue
+        w = fused_cast_scale(g, 1.0, wire_dtype)
         dist.all_reduce(w, group=group)
-        means.append(w.to(g.dtype) / n)
+        if _fuses_divide(n, g.dtype):
+            means.append(fused_cast_scale(w, 1.0 / n, g.dtype))
+        else:
+            means.append(fused_cast_scale(w, 1.0, g.dtype).div_(n))
     return means

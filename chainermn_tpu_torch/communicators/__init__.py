@@ -32,8 +32,8 @@ _COMMUNICATORS = {
 # names of the JAX package not ported yet, and the ROADMAP item that
 # brings each
 _WAITING = {
-    "hierarchical": "Queue 1 'Communicators, tier 2' (intra/inter "
-                    "subgroups)",
+    "hierarchical": "Queue 1 'MNBN and the hierarchical communicator' "
+                    "(intra/inter subgroups)",
     "two_dimensional": "Queue 1 'Communicators, tier 2' (2-D "
                        "factorisation)",
     "non_cuda_aware": "Queue 1 'Communicators, tier 2' (host-staged "

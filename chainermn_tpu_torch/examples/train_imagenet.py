@@ -1,0 +1,168 @@
+#!/usr/bin/env python
+"""Data-parallel ImageNet-style training: the twin of the JAX package's
+``examples/imagenet/train_imagenet.py`` (ChainerMN's flagship
+data-parallel workload: scatter_dataset -> multi-node optimizer ->
+Trainer, with the BatchNorm running statistics mean-reduced over the
+ranks after every update).
+
+Without ``--npz`` (a directory of ``train.npz``/``val.npz`` with arrays
+``x`` (NHWC) and ``y``) it trains on an in-memory synthetic set of the
+same shapes.  Images stay NHWC, as in the JAX example; the model
+permutes them once.
+
+    python -m chainermn_tpu_torch.examples.train_imagenet --arch resnet50
+    torchrun --nproc_per_node 4 -m chainermn_tpu_torch.examples.train_imagenet
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+
+import numpy as np
+import torch
+
+import chainermn_tpu_torch as cmn
+from chainermn_tpu_torch import models
+from chainermn_tpu_torch.examples._world import finish_world, init_world
+from chainermn_tpu_torch.extensions import Evaluator
+from chainermn_tpu_torch.iterators import EpochIterator, SerialIterator
+from chainermn_tpu_torch.models import flax_ordered_parameters
+from chainermn_tpu_torch.ops.losses import accuracy, softmax_cross_entropy
+from chainermn_tpu_torch.training import Trainer, Updater
+from chainermn_tpu_torch.training import extensions as T
+from chainermn_tpu_torch.utils import SyntheticImageDataset
+
+ARCHS = {"resnet18": models.ResNet18, "resnet50": models.ResNet50,
+         "resnet101": models.ResNet101}
+# the JAX example's other architectures, not ported yet
+WAITING_ARCHS = ("alex", "googlenet", "googlenetbn", "nin", "vgg16")
+REPORT = ["epoch", "iteration", "loss", "val/loss", "val/accuracy",
+          "samples_per_sec"]
+
+
+def parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        description="chainermn_tpu_torch example: ImageNet")
+    p.add_argument("--arch", default="resnet50",
+                   choices=sorted(ARCHS) + list(WAITING_ARCHS))
+    p.add_argument("--communicator", default="pure_nccl")
+    p.add_argument("--batchsize", type=int, default=64,
+                   help="global batch size (split over the ranks)")
+    p.add_argument("--epoch", type=int, default=1)
+    p.add_argument("--lr", type=float, default=0.1)
+    p.add_argument("--momentum", type=float, default=0.9)
+    p.add_argument("--image-size", type=int, default=224)
+    p.add_argument("--num-classes", type=int, default=1000)
+    p.add_argument("--n-train", type=int, default=512,
+                   help="synthetic train set size")
+    p.add_argument("--n-val", type=int, default=128)
+    p.add_argument("--npz", default=None,
+                   help="directory with train.npz/val.npz (x, y arrays)")
+    p.add_argument("--allreduce-grad-dtype", default=None,
+                   choices=["float16", "bfloat16", "float32"],
+                   help="reduced-precision gradient wire")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (this rank's card) or cpu (gloo)")
+    p.add_argument("--mnbn", action="store_true",
+                   help="synchronized BatchNorm (not ported)")
+    p.add_argument("--native-loader", action="store_true",
+                   help="the C++ threaded loader (not ported)")
+    p.add_argument("--checkpoint", default=None,
+                   help="checkpoint/resume under this name (not ported)")
+    return p
+
+
+def _refuse(args) -> None:
+    waiting = {
+        "mnbn": "'MNBN and the hierarchical communicator'",
+        "native_loader": "'Native input path'",
+        "checkpoint": "'Checkpoints and the input pipeline'",
+    }
+    for flag, item in waiting.items():
+        if getattr(args, flag):
+            raise NotImplementedError(
+                f"--{flag.replace('_', '-')} is not ported yet: see ROADMAP "
+                f"Queue 1, {item}")
+    if args.arch in WAITING_ARCHS:
+        raise NotImplementedError(
+            f"--arch {args.arch} is not ported yet: see ROADMAP Queue 1, "
+            "'Other image architectures'")
+
+
+def _datasets(args):
+    if args.npz:
+        tr = np.load(os.path.join(args.npz, "train.npz"))
+        va = np.load(os.path.join(args.npz, "val.npz"))
+        return list(zip(tr["x"], tr["y"])), list(zip(va["x"], va["y"]))
+    shape = (args.image_size, args.image_size, 3)
+    n_classes = min(args.num_classes, 64)
+    return (SyntheticImageDataset(args.n_train, shape=shape,
+                                  n_classes=n_classes, seed=0),
+            SyntheticImageDataset(args.n_val, shape=shape,
+                                  n_classes=n_classes, seed=1))
+
+
+def main(argv=None) -> list:
+    """Train and return the log, one entry per epoch (its last entry is
+    what the JAX example returns)."""
+    args = parser().parse_args(argv)
+    _refuse(args)
+    created = init_world(args.device)
+    try:
+        comm = cmn.create_communicator(
+            args.communicator, allreduce_grad_dtype=args.allreduce_grad_dtype)
+        chief = comm.rank == 0
+        device = comm.device
+        if chief:
+            print(f"arch={args.arch}  communicator={args.communicator}  "
+                  f"{comm!r}  device {device}")
+        train, val = _datasets(args)
+        train = cmn.scatter_dataset(train, comm, shuffle=True, seed=0)
+        val = cmn.scatter_dataset(val, comm, shuffle=False, seed=0)
+        batch = max(args.batchsize // comm.size, 1)
+        train_it = SerialIterator(train, batch, shuffle=True, seed=1)
+
+        model = ARCHS[args.arch](num_classes=args.num_classes).to(device)
+        comm.bcast_data(model)
+        # the JAX step's tree is {"params", "batch_stats"}: the running
+        # statistics ride the wire as zero-gradient leaves, and their
+        # rank mean is folded in after each update
+        opt = cmn.create_multi_node_optimizer(torch.optim.SGD(
+            [p for _, p in flax_ordered_parameters(model)], lr=args.lr,
+            momentum=args.momentum), comm)
+        step = cmn.build_train_step(
+            comm, lambda b: softmax_cross_entropy(model(b[0]), b[1]), opt,
+            model_state=list(model.buffers()))
+        if chief:
+            plan = opt.wire_plan()
+            print(f"wire {opt.wire.codec}: {plan.describe()}")
+        trainer = Trainer(Updater(train_it, step),
+                          stop_trigger=(args.epoch, "epoch"))
+
+        def metric(b):
+            logits = model(b[0])
+            return {"loss": softmax_cross_entropy(logits, b[1]),
+                    "accuracy": accuracy(logits, b[1])}
+
+        evaluator = Evaluator(lambda: EpochIterator(val, batch), metric, comm,
+                              model=model)
+        trainer.extend(cmn.create_multi_node_evaluator(evaluator, comm))
+        log = T.LogReport(comm=comm)
+        trainer.extend(T.Throughput(args.batchsize, comm=comm),
+                       trigger=(1, "iteration"))
+        trainer.extend(log, trigger=(1, "epoch"))
+        trainer.extend(T.PrintReport(REPORT, log, comm=comm),
+                       trigger=(1, "epoch"))
+        trainer.run()
+        if chief and log.log:
+            print("final:", {k: round(v, 4) for k, v in log.log[-1].items()
+                             if isinstance(v, float)})
+        return log.log
+    finally:
+        finish_world(created)
+
+
+if __name__ == "__main__":
+    cmn.global_except_hook.add_hook()
+    main()

@@ -1,12 +1,16 @@
-"""Weight carrier: a flax ``TransformerLM`` parameter tree as the port's
-``state_dict``, and the flax leaf order.
+"""Weight carrier: a flax parameter tree as the port's ``state_dict``,
+and the flax leaf order.
 
 The one place where the JAX package's layout meets the port's: flax
 ``Dense`` kernels are ``(in, out)`` and become ``nn.Linear`` weights
-``(out, in)`` here; LayerNorm ``scale`` becomes ``weight``.  The same
-table gives the order in which flax flattens the tree (sorted keys at
-every level), which the gradient wire plans its buckets in
-(``comm_wire.planner``): ``named_parameters()`` orders them otherwise.
+``(out, in)`` here; ``Conv`` kernels are HWIO and become OIHW;
+LayerNorm and BatchNorm ``scale`` becomes ``weight``, and BatchNorm's
+``batch_stats`` (``mean``, ``var``) become the ``running_mean`` and
+``running_var`` buffers.  The same tables give the order in which flax
+flattens the tree (sorted keys at every level, so ``Bottleneck_10``
+comes before ``Bottleneck_2``), which the gradient wire plans its
+buckets in (``comm_wire.planner``): ``named_parameters()`` orders them
+otherwise.
 """
 
 from __future__ import annotations
@@ -17,50 +21,176 @@ import numpy as np
 import torch
 from torch import nn
 
+# layouts: the flax array as is, a Dense kernel (in, out) <-> (out, in),
+# a Conv kernel HWIO <-> OIHW
+AS_IS, DENSE, CONV = "as_is", "dense", "conv"
+
 
 class Leaf(NamedTuple):
-    """One parameter as both frameworks name it."""
+    """One array as both frameworks name it."""
 
-    path: Tuple[str, ...]  # flax path under 'params'
+    path: Tuple[str, ...]  # flax path (the LM's under 'params'; the
+    # image models' from the collection down)
     key: str  # the port's state_dict key
-    transposed: bool  # Dense kernel (in, out) <-> Linear weight (out, in)
+    layout: str  # AS_IS, DENSE or CONV
 
 
 def lm_leaves(n_layers: int) -> List[Leaf]:
     """Every parameter of an ``n_layers`` TransformerLM, in flax's
     flatten order (jax sorts dict keys, so ``TransformerBlock_10`` comes
     before ``TransformerBlock_2``)."""
-    leaves = [Leaf(("embed", "embedding"), "embed.weight", False),
-              Leaf(("pos_embed",), "pos_embed", False),
-              Leaf(("LayerNorm_0", "scale"), "ln_f.weight", False),
-              Leaf(("LayerNorm_0", "bias"), "ln_f.bias", False)]
+    leaves = [Leaf(("embed", "embedding"), "embed.weight", AS_IS),
+              Leaf(("pos_embed",), "pos_embed", AS_IS),
+              Leaf(("LayerNorm_0", "scale"), "ln_f.weight", AS_IS),
+              Leaf(("LayerNorm_0", "bias"), "ln_f.bias", AS_IS)]
     for i in range(n_layers):
         blk, pre = f"TransformerBlock_{i}", f"blocks.{i}"
         for ln, mod in (("LayerNorm_0", "ln1"), ("LayerNorm_1", "ln2")):
-            leaves += [Leaf((blk, ln, "scale"), f"{pre}.{mod}.weight", False),
-                       Leaf((blk, ln, "bias"), f"{pre}.{mod}.bias", False)]
+            leaves += [Leaf((blk, ln, "scale"), f"{pre}.{mod}.weight", AS_IS),
+                       Leaf((blk, ln, "bias"), f"{pre}.{mod}.bias", AS_IS)]
         for sub, dense, mod, bias in (
                 ("SelfAttention_0", "Dense_0", "attn.qkv", False),
                 ("SelfAttention_0", "Dense_1", "attn.proj", False),
                 ("MlpBlock_0", "Dense_0", "mlp.fc1", True),
                 ("MlpBlock_0", "Dense_1", "mlp.fc2", True)):
             leaves.append(Leaf((blk, sub, dense, "kernel"),
-                               f"{pre}.{mod}.weight", True))
+                               f"{pre}.{mod}.weight", DENSE))
             if bias:
                 leaves.append(Leaf((blk, sub, dense, "bias"),
-                                   f"{pre}.{mod}.bias", False))
+                                   f"{pre}.{mod}.bias", AS_IS))
     return sorted(leaves, key=lambda leaf: leaf.path)
 
 
-def flax_ordered_parameters(model: nn.Module) -> List[Tuple[str, nn.Parameter]]:
-    """``(state_dict key, parameter)`` of a TransformerLM in flax's
-    flatten order."""
-    params = dict(model.named_parameters())
-    return [(leaf.key, params[leaf.key]) for leaf in lm_leaves(model.n_layers)]
+def mlp_leaves() -> List[Leaf]:
+    """The MLP's parameters in flax's order (``Dense_0..2`` -> ``l1..3``)."""
+    leaves = []
+    for i in range(3):
+        leaves += [Leaf(("params", f"Dense_{i}", "kernel"), f"l{i + 1}.weight",
+                        DENSE),
+                   Leaf(("params", f"Dense_{i}", "bias"), f"l{i + 1}.bias",
+                        AS_IS)]
+    return sorted(leaves, key=lambda leaf: leaf.path)
 
 
-def _t(a) -> torch.Tensor:
-    return torch.from_numpy(np.array(a, dtype=np.float32))
+# a ResNet block's flax submodules (numbered by creation order) -> the
+# port's attribute names
+_BLOCK_SUBS = {
+    "Bottleneck": {"Conv_0": "conv1", "BatchNorm_0": "bn1", "Conv_1": "conv2",
+                   "BatchNorm_1": "bn2", "Conv_2": "conv3",
+                   "BatchNorm_2": "bn3", "Conv_3": "proj",
+                   "BatchNorm_3": "proj_bn"},
+    "BasicBlock": {"Conv_0": "conv1", "BatchNorm_0": "bn1", "Conv_1": "conv2",
+                   "BatchNorm_1": "bn2", "Conv_2": "proj",
+                   "BatchNorm_2": "proj_bn"},
+}
+_BN_LEAVES = (("params", "scale", "weight"), ("params", "bias", "bias"),
+              ("batch_stats", "mean", "running_mean"),
+              ("batch_stats", "var", "running_var"))
+
+
+def _resnet_leaf(path: Tuple[str, ...]) -> Leaf:
+    """The port's key and layout of one flax ResNet path (the
+    collection, then the module names, then the array name)."""
+    mods, name = path[1:-1], path[-1]
+    if mods == ("conv_init",):
+        return Leaf(path, "conv_init.weight", CONV)
+    if mods == ("Dense_0",):
+        return Leaf(path, f"head.{'weight' if name == 'kernel' else 'bias'}",
+                    DENSE if name == "kernel" else AS_IS)
+    bn = {f: p for _, f, p in _BN_LEAVES}
+    if mods == ("BatchNorm_0",):
+        return Leaf(path, f"bn_init.{bn[name]}", AS_IS)
+    cls, k = mods[0].rsplit("_", 1)
+    sub = _BLOCK_SUBS[cls][mods[1]]
+    if mods[1].startswith("Conv"):
+        return Leaf(path, f"blocks.{k}.{sub}.weight", CONV)
+    return Leaf(path, f"blocks.{k}.{sub}.{bn[name]}", AS_IS)
+
+
+def resnet_leaves(model: nn.Module) -> List[Leaf]:
+    """Every parameter and running statistic of a port ``ResNet``, in
+    the flax order of ``{"params", "batch_stats"}`` (``batch_stats``
+    sorts first)."""
+    paths = [("params", "conv_init", "kernel"),
+             ("params", "Dense_0", "kernel"), ("params", "Dense_0", "bias")]
+    paths += [(coll, "BatchNorm_0", f) for coll, f, _ in _BN_LEAVES]
+    cls = model.block_cls.__name__
+    for k, blk in enumerate(model.blocks):
+        for flax_sub, sub in _BLOCK_SUBS[cls].items():
+            if getattr(blk, sub) is None:
+                continue
+            mod = f"{cls}_{k}"
+            if flax_sub.startswith("Conv"):
+                paths.append(("params", mod, flax_sub, "kernel"))
+            else:
+                paths += [(coll, mod, flax_sub, f) for coll, f, _ in _BN_LEAVES]
+    return sorted((_resnet_leaf(p) for p in paths),
+                  key=lambda leaf: leaf.path)
+
+
+def model_leaves(model: nn.Module) -> List[Leaf]:
+    """The flax-ordered leaves of a port ``TransformerLM``, ``MLP`` or
+    ``ResNet``."""
+    from .mlp import MLP
+    from .resnet import ResNet
+    from .transformer import TransformerLM
+
+    if isinstance(model, TransformerLM):
+        return lm_leaves(model.n_layers)
+    if isinstance(model, MLP):
+        return mlp_leaves()
+    if isinstance(model, ResNet):
+        return resnet_leaves(model)
+    raise TypeError(f"no flax leaf table for {type(model).__name__}")
+
+
+def flax_ordered_parameters(model: nn.Module) -> List[Tuple[str, torch.Tensor]]:
+    """``(state_dict key, tensor)`` of every leaf of the model's flax
+    tree, in flax's flatten order: the list to build the multi-node
+    optimizer over, so that the wire's buckets have the JAX plan's
+    layout.  A ResNet's running statistics are among them (first, as
+    ``batch_stats`` sorts before ``params``): the JAX step plans
+    ``{"params", "batch_stats"}``, so its buckets carry them as
+    zero-gradient leaves."""
+    tensors = model.state_dict(keep_vars=True)
+    return [(leaf.key, tensors[leaf.key]) for leaf in model_leaves(model)]
+
+
+def flax_shape(leaf: Leaf, shape) -> Tuple[int, ...]:
+    """The flax shape of a leaf whose port tensor has ``shape``."""
+    shape = tuple(int(s) for s in shape)
+    if leaf.layout == DENSE:
+        return shape[::-1]
+    if leaf.layout == CONV:
+        o, i, kh, kw = shape
+        return (kh, kw, i, o)
+    return shape
+
+
+def flax_leaf_specs(model: nn.Module) -> List[Tuple[Tuple[int, ...], str]]:
+    """``(flax shape, numpy dtype name)`` of every leaf in flax order:
+    ``comm_wire.make_plan`` of this list is the JAX plan of the flax
+    tree, ``plan_hash`` included (the optimizer's own plan covers the
+    port's shapes, so its hash differs where a layout does)."""
+    tensors = model.state_dict(keep_vars=True)
+    return [(flax_shape(leaf, tensors[leaf.key].shape),
+             str(tensors[leaf.key].dtype).split(".")[-1])
+            for leaf in model_leaves(model)]
+
+
+def _t(a, layout: str) -> torch.Tensor:
+    a = np.array(a, dtype=np.float32)
+    if layout == DENSE:
+        a = a.T
+    elif layout == CONV:
+        a = a.transpose(3, 2, 0, 1)
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _at(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
 
 
 def lm_params_from_flax(params) -> Dict[str, torch.Tensor]:
@@ -71,10 +201,32 @@ def lm_params_from_flax(params) -> Dict[str, torch.Tensor]:
     n_layers = 0
     while f"TransformerBlock_{n_layers}" in p:
         n_layers += 1
+    return {leaf.key: _t(_at(p, leaf.path), leaf.layout)
+            for leaf in lm_leaves(n_layers)}
+
+
+def mlp_params_from_flax(variables) -> Dict[str, torch.Tensor]:
+    """Map ``{'params': {...}}`` of the JAX ``MLP`` onto
+    :class:`~chainermn_tpu_torch.models.mlp.MLP`'s ``state_dict``."""
+    return {leaf.key: _t(_at(variables, leaf.path), leaf.layout)
+            for leaf in mlp_leaves()}
+
+
+def resnet_params_from_flax(variables) -> Dict[str, torch.Tensor]:
+    """Map ``{'params': ..., 'batch_stats': ...}`` of a JAX ``ResNet``
+    (arrays as numpy) onto the port's ``ResNet`` ``state_dict``: every
+    parameter and running statistic, the zero-initialised scales of the
+    blocks' last BatchNorms included."""
     out: Dict[str, torch.Tensor] = {}
-    for leaf in lm_leaves(n_layers):
-        a = p
-        for k in leaf.path:
-            a = a[k]
-        out[leaf.key] = _t(np.asarray(a).T if leaf.transposed else a)
+
+    def walk(tree, path):
+        if isinstance(tree, dict) or hasattr(tree, "items"):
+            for k, v in tree.items():
+                walk(v, path + (k,))
+            return
+        leaf = _resnet_leaf(path)
+        out[leaf.key] = _t(tree, leaf.layout)
+
+    for coll in ("params", "batch_stats"):
+        walk(variables[coll], (coll,))
     return out

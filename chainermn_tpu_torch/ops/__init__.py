@@ -1,8 +1,9 @@
-"""Ops: attention cores and the hand-written CUDA kernels.
+"""Ops: attention cores, losses and the hand-written CUDA kernels.
 
 Kernels build at first launch (``_build``), never at import.  The
 function ``flash_attention`` is ``ops.flash_attention.flash_attention``:
-here ``ops.flash_attention`` names its module.
+here ``ops.flash_attention`` names its module, as ``ops.fused_cast_scale``
+and ``ops.losses`` name theirs.
 """
 
 from .attention import multi_head_attention

@@ -4,7 +4,9 @@ Port of ``chainermn_tpu/optimizers.py``'s main path:
 ``create_multi_node_optimizer`` (optimizers.py:906), the bucketed
 gradient sync ``_sync_grads`` / ``_sync_grads_wire`` (:134, :101) and
 ``build_train_step`` (:1060) with its non-finite guard
-(``_guarded_apply``, :1299).
+(``_guarded_apply``, :1299), and its model-state form
+(``has_aux=True, merge_aux=...``, :1072-1100): running statistics that
+the forward updates are mean-reduced over the ranks after the update.
 
 The wrapped object is a ``torch.optim`` optimizer.  The gradient sync
 plans the optimizer's parameters, in their order, into the wire's
@@ -21,7 +23,7 @@ wait (ROADMAP Queue 1, "Optimizer, tier 2").
 from __future__ import annotations
 
 import warnings
-from typing import Callable, List, Optional
+from typing import Callable, List, Optional, Sequence
 
 import torch
 
@@ -32,6 +34,7 @@ from .comm_wire import (
     resolve_wire,
     unflatten_from_buckets,
 )
+from .extensions.allreduce_persistent import allreduce_mean_
 from .resilience.errors import StepDivergedError
 
 NONFINITE_POLICIES = (None, "skip", "abort", "warn")
@@ -143,29 +146,38 @@ class TrainStep:
 
     ``step(batch) -> metrics``: zero the gradients, ``loss_fn(batch)``
     and its backward on this rank's batch, then, under the non-finite
-    guard, the optimizer's gradient sync and update.  ``metrics["loss"]``
-    is the loss averaged over the ranks (a 0-dim tensor on the loss's
-    device, so reading it is the caller's choice); with a guard,
+    guard, the optimizer's gradient sync and update, then the mean of
+    ``model_state`` over the ranks.  ``metrics["loss"]`` is the loss
+    averaged over the ranks (a 0-dim tensor on the loss's device, so
+    reading it is the caller's choice); with a guard,
     ``metrics["grads_finite"]`` is 1.0 or 0.0.
     """
 
     def __init__(self, comm, loss_fn, optimizer: MultiNodeOptimizer,
-                 nonfinite):
+                 nonfinite, model_state):
         self.comm = comm
         self.loss_fn = loss_fn
         self.optimizer = optimizer
         self.nonfinite_policy = nonfinite
+        self.model_state = list(model_state)
 
     def __call__(self, batch) -> dict:
         opt = self.optimizer
         opt.bcast_once()
         opt.zero_grad(set_to_none=True)
+        # a skipped step must leave the state as the forward found it
+        saved = ([t.clone() for t in self.model_state]
+                 if self.nonfinite_policy is not None else None)
         loss = self.loss_fn(batch)
         loss.backward()
         extra = {}
         if self.nonfinite_policy is not None:
             finite = _all_finite(opt.params, self.comm)
             extra["grads_finite"] = float(finite)
+            if not finite and self.nonfinite_policy != "warn":
+                with torch.no_grad():
+                    for t, s in zip(self.model_state, saved):
+                        t.copy_(s)
             if not finite and self.nonfinite_policy == "abort":
                 raise StepDivergedError(
                     "non-finite gradients on some rank (nonfinite='abort'); "
@@ -179,11 +191,14 @@ class TrainStep:
         if apply:
             opt.sync_grads()
             opt.actual_optimizer.step()
+            if self.model_state:
+                allreduce_mean_(self.model_state, self.comm)
         return {"loss": self.comm.allreduce(loss.detach(), "mean"), **extra}
 
 
 def build_train_step(comm, loss_fn: Callable, optimizer: MultiNodeOptimizer,
-                     *, nonfinite: Optional[str] = None) -> TrainStep:
+                     *, nonfinite: Optional[str] = None,
+                     model_state: Sequence[torch.Tensor] = ()) -> TrainStep:
     """Build the data-parallel training step (the counterpart of
     ``chainermn_tpu.optimizers.build_train_step``, optimizers.py:1060).
 
@@ -193,8 +208,20 @@ def build_train_step(comm, loss_fn: Callable, optimizer: MultiNodeOptimizer,
     the first step and syncs the gradients.  A ``dummy`` communicator
     builds the same step with the gradient exchange left out.
 
+    ``model_state``: tensors the forward updates in place, such as a
+    model's BatchNorm running statistics (``[b for _, b in
+    model.named_buffers()]``): after each update they are mean-reduced
+    over the ranks (one all-reduce), so the carried state stays equal
+    on every rank.  This is the JAX step's ``has_aux=True`` with a
+    ``merge_aux`` that puts the reduced ``batch_stats`` back: the state
+    is folded in after the optimizer's update, never through it.  (The
+    JAX step also plans ``batch_stats`` into the wire as zero-gradient
+    leaves; build the optimizer over ``models.flax_ordered_parameters``
+    for the same buckets.)
+
     ``nonfinite``: ``None`` (off), ``"skip"`` (an agreed no-op step when
-    any rank's gradients are non-finite), ``"abort"`` (raise
+    any rank's gradients are non-finite; ``model_state`` is put back as
+    it was before the forward), ``"abort"`` (raise
     :class:`~chainermn_tpu_torch.resilience.StepDivergedError` without
     updating) or ``"warn"`` (apply anyway, with a warning).  The flag is
     agreed by a min-reduce over every rank.
@@ -206,4 +233,4 @@ def build_train_step(comm, loss_fn: Callable, optimizer: MultiNodeOptimizer,
         raise TypeError("build_train_step takes the optimizer of "
                         "create_multi_node_optimizer, got "
                         f"{type(optimizer).__name__}")
-    return TrainStep(comm, loss_fn, optimizer, nonfinite)
+    return TrainStep(comm, loss_fn, optimizer, nonfinite, model_state)

@@ -34,7 +34,23 @@ Run from the repository root, with one card.  Phases:
    ``build_train_step`` on a 1-rank NCCL group, the flash kernels'
    counts set to 0 just before the timed steps and read just after; a
    ``torch.profiler`` step; flash vs dense attend on identical params
-   and batch.
+   and batch;
+7. the fused cast/scale kernel (K1) against its plain version, bit for
+   bit, at every dtype pair, ragged sizes, an odd-offset view and each
+   bucket of ResNet-50's wire plan, then timed at those buckets beside
+   its plain version, ``Tensor.to`` and its bound;
+8. the image main path: ResNet-50 at full width (batch 128 of 224 x 224
+   NHWC images, 1000 classes) trained through ``create_communicator(
+   "pure_nccl", allreduce_grad_dtype=bfloat16)`` -> ``bcast_data`` ->
+   ``create_multi_node_optimizer(SGD momentum)`` -> ``build_train_step``
+   with the BatchNorm state on a 1-rank NCCL group, K1's count set to 0
+   just before the timed steps and read just after (2 launches a bucket
+   a step); a ``torch.profiler`` step; the same step on the codec-
+   ``none`` wire;
+9. the Trainer path: the MNIST example's twin (MLP, bf16 wire) through
+   ``Trainer`` + ``Evaluator`` + the reports for a few epochs, then the
+   ImageNet example's twin with ResNet-50 for a few iterations, each
+   with K1's count set to 0 just before and read just after.
 
 Any failed check raises, so the script exits non-zero.  Without CUDA it
 exits non-zero before printing any result.  The last two lines are the
@@ -54,6 +70,7 @@ import chainermn_tpu_torch
 from chainermn_tpu_torch.models import TransformerLM, lm_loss
 from chainermn_tpu_torch.ops import _build
 from chainermn_tpu_torch.ops import flash_attention as fa
+from chainermn_tpu_torch.ops import fused_cast_scale as fcs
 from chainermn_tpu_torch.ops.flash_decode import (
     TOLERANCE, flash_decode, paged_decode_reference)
 from chainermn_tpu_torch.serving import ContinuousBatcher, DecodeEngine, Request
@@ -676,8 +693,8 @@ def profile_train_step(step, tokens):
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
-    return busy, wall, sum(e.count for e in kernels), top
+    kernels.sort(key=lambda e: -e.self_device_time_total)
+    return busy, wall, sum(e.count for e in kernels), kernels
 
 
 def train_phase():
@@ -743,12 +760,12 @@ def train_phase():
             f"{peak / 2**30:.2f} GiB; launches {json.dumps(launches)} = "
             f"n_layers x steps ({N_LAYERS} x {TRAIN_STEPS})")
 
-        busy, wall, n_kernels, top = profile_train_step(step, tokens)
+        busy, wall, n_kernels, kernels = profile_train_step(step, tokens)
         log(f"profile train step: device busy {busy:.3f} ms in {n_kernels} "
             f"kernel launches over the profiled step's {wall:.3f} ms (host "
             f"clock; unprofiled mean {mean_ms:.3f} ms); idle share "
             f"{1 - busy / wall:.1%}")
-        for e in top:
+        for e in kernels[:10]:
             log(f"  {e.self_device_time_total / 1e3:9.3f} ms x{e.count:<4d} "
                 f"{e.key[:90]}")
 
@@ -770,6 +787,369 @@ def train_phase():
         dist.destroy_process_group()
 
 
+# ----------------------------------------------------------------------
+# Image slice: the fused cast/scale kernel (K1) in the gradient wire, and
+# ResNet-50 trained data-parallel through the Trainer's pieces
+# ----------------------------------------------------------------------
+# bench.py:212-259, 348-365: ResNet-50, 224 x 224 NHWC images, batch 128
+# per chip, SGD lr 0.1 momentum 0.9, a resident synthetic batch
+IMAGE, IMAGE_BATCH, N_CLASSES = 224, 128, 1000
+IMAGE_WARMUP, IMAGE_STEPS = 1, 6
+CAST_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+CAST_SCALES = (1.0, 0.5, 1.0 / 3.0)
+
+
+def cast_input(n, dtype, seed):
+    """n values over many binades, with NaN, +-inf, -0, fp16 overflow
+    and fp32 subnormals among them, on the card."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(n, generator=g, device="cuda") * torch.exp2(
+        torch.randint(-30, 30, (n,), generator=g, device="cuda").float())
+    special = torch.tensor([float("nan"), float("inf"), -float("inf"), -0.0,
+                            7e4, -7e4, 1e-40, 3.0e-8], device="cuda")
+    x[:min(n, len(special))] = special[:n]
+    return x.to(dtype)
+
+
+def cast_bound(n, src, dst):
+    """Least time for one launch: n elements read once and written once
+    over HBM bandwidth, against n fp32 multiplies."""
+    t_bytes = n * (src.itemsize + dst.itemsize) / HBM_BYTES_PER_S
+    t_ops = n / PEAK_OPS_PER_S[torch.float32]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def resnet50_plan():
+    """ResNet-50's wire plan over its flax-ordered leaves (the running
+    statistics among them)."""
+    from chainermn_tpu_torch.comm_wire import make_plan
+    from chainermn_tpu_torch.models import ResNet50, flax_leaf_specs
+
+    return make_plan(flax_leaf_specs(ResNet50(num_classes=N_CLASSES)))
+
+
+def cast_kernel_phase(bucket_sizes):
+    """K1 against its plain version, bit for bit (NaN positions as
+    positions), for every dtype pair at sizes 1, 7 and 1027, an odd-offset
+    view into a larger buffer and every bucket size, at each scale; then
+    timed on the main path's launches (each bucket fp32 -> bf16 to the
+    wire, bf16 -> fp32 back; scale 1 at world 1) beside its plain
+    version, Tensor.to (the one PyTorch call computing the scale-1 leg)
+    and its bound.  Returns the record: per-launch means over one step's
+    launches."""
+    big = max(bucket_sizes)
+    n_cases, err = 0, 0.0
+    for src in CAST_DTYPES:
+        buf = cast_input(big + 8, src, 1)
+        xs = [cast_input(n, src, n) for n in (1, 7, 1027)]
+        xs.append(buf[3:3 + 70001])  # odd element offset
+        xs += [buf[:n] for n in bucket_sizes]
+        for dst in CAST_DTYPES:
+            for x in xs:
+                for scale in CAST_SCALES:
+                    got = fcs.fused_cast_scale(x, scale, dst)
+                    want = fcs.cast_scale_reference(x, scale, dst)
+                    check(fcs.same_bits(got, want),
+                          f"fused_cast_scale {src}->{dst} n={x.numel()} "
+                          f"offset={x.storage_offset()} scale={scale}")
+                    finite = torch.isfinite(want)
+                    err = max(err, float((got.float() - want.float())[finite]
+                                         .abs().max()) if finite.any() else 0.0)
+                    n_cases += 1
+        del buf, xs
+    torch.cuda.synchronize()
+    log(f"fused_cast_scale: bit-exact against its plain version in "
+        f"{n_cases} cases, max_abs_err={err} over the finite outputs (3 x 3 dtype pairs, sizes 1, 7, 1027, an odd-offset "
+        f"view of 70001 and the buckets {list(bucket_sizes)}, scales "
+        f"{[round(s, 6) for s in CAST_SCALES]})")
+
+    grads = [torch.randn(n, device="cuda") * 1e-3 for n in bucket_sizes]
+    wire = [g.bfloat16() for g in grads]
+    legs = ([(g, torch.bfloat16) for g in grads]
+            + [(w, torch.float32) for w in wire])
+    bound_by = "bytes"
+    for x, dst in legs:
+        ms = queued_ms(lambda: fcs.fused_cast_scale(x, 1.0, dst), 50)
+        bound_ms, bound_by = cast_bound(x.numel(), x.dtype, dst)
+        log(f"fused_cast_scale {str(x.dtype)[6:]}->{str(dst)[6:]} "
+            f"n={x.numel()}: kernel {ms:.4f} ms alone (its input "
+            f"{x.numel() * x.element_size() / 1e6:.1f} MB, L2-resident "
+            f"where it fits), bound {bound_ms:.4f} ms ({bound_by}), "
+            f"{bound_ms / ms:.1%} of bound")
+
+    def each_leg(fn):
+        return lambda: [fn(x, dst) for x, dst in legs]
+
+    # a step's launches in the step's order (every bucket to the wire,
+    # then every bucket back: 2 x 102 MB of fp32, beyond the L2 cache)
+    n = len(legs)
+    step = {
+        "ms": queued_ms(each_leg(
+            lambda x, dst: fcs.fused_cast_scale(x, 1.0, dst)), 20),
+        "plain_ms": queued_ms(each_leg(
+            lambda x, dst: fcs.cast_scale_reference(x, 1.0, dst)), 20),
+        "library_ms": queued_ms(each_leg(lambda x, dst: x.to(dst)), 20),
+        "bound_ms": sum(cast_bound(x.numel(), x.dtype, dst)[0]
+                        for x, dst in legs),
+    }
+    host_ms = host_enqueue_ms(each_leg(
+        lambda x, dst: fcs.fused_cast_scale(x, 1.0, dst)), 20)
+    rec = {k: v / n for k, v in step.items()}
+    rec.update(bound_by=bound_by, max_abs_err=err, share_of_tolerance=None,
+               per_step_ms=step["ms"], per_step_bound_ms=step["bound_ms"],
+               host_ms_per_launch=host_ms / n)
+    log(f"fused_cast_scale per step ({n} launches, device time): kernel "
+        f"{step['ms']:.4f} ms, plain {step['plain_ms']:.4f} ms, Tensor.to "
+        f"{step['library_ms']:.4f} ms, bound {step['bound_ms']:.4f} ms "
+        f"({step['bound_ms'] / step['ms']:.1%} of bound); the wrapper's host "
+        f"time {host_ms / n:.4f} ms a launch")
+    del grads, wire, legs
+    torch.cuda.empty_cache()
+    return rec
+
+
+def queued_ms(fn, iters):
+    """Mean device ms per call of fn(): CUDA events around ``iters``
+    calls queued behind a spin kernel, so the card runs them back to
+    back and the host's launch time does not show (fn's kernels are
+    shorter than its Python wrapper)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)  # ~25 ms at the H100's clock
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def host_enqueue_ms(fn, iters):
+    """Host ms per call of fn() (enqueue only, host clock)."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    ms = (time.perf_counter() - t) * 1e3 / iters
+    torch.cuda.synchronize()
+    return ms
+
+
+def image_batch(device):
+    """The resident synthetic batch of bench.py:249-256 (seed 0 images,
+    seed 1 labels)."""
+    x = np.random.RandomState(0).randn(IMAGE_BATCH, IMAGE, IMAGE, 3)
+    y = np.random.RandomState(1).randint(0, N_CLASSES, (IMAGE_BATCH,))
+    return (torch.from_numpy(x).to(device, torch.bfloat16),
+            torch.from_numpy(y).to(device))
+
+
+def timed_steps(step, batch, n):
+    losses, times = [], []
+    for _ in range(n):
+        t = time.perf_counter()
+        m = step(batch)
+        losses.append(float(m["loss"]))  # reads the loss: synchronizes
+        times.append(1e3 * (time.perf_counter() - t))
+    return losses, times
+
+
+# kinds of kernel in a ResNet-50 step, by name (first match wins): the
+# convolutions (cuDNN's and the GEMM kernels it picks), the fused
+# cast/scale kernel, the optimizer's multi-tensor updates, NCCL, the
+# reductions (BatchNorm statistics, the mean pool, the loss), the
+# remaining elementwise passes (BatchNorm arithmetic, casts, ReLU,
+# residual adds, copies)
+KERNEL_KINDS = (
+    ("convolution and GEMM", ("conv", "cudnn", "xmma", "implicit", "nhwc",
+                              "gemm", "nvjet", "cutlass", "sm90_", "sm80_",
+                              "dgrad", "wgrad")),
+    ("fused_cast_scale", ("fused_cast_scale",)),
+    ("optimizer", ("multi_tensor_apply",)),
+    ("nccl", ("nccl",)),
+    ("reduction", ("reduce_kernel",)),
+    ("elementwise and copies", ("",)),
+)
+
+
+def kernel_categories(kernels):
+    """{kind: (device ms, launches)} of profiled kernels."""
+    out = {k: [0.0, 0] for k, _ in KERNEL_KINDS}
+    for e in kernels:
+        name = e.key.lower()
+        kind = next(k for k, pats in KERNEL_KINDS
+                    if any(p in name for p in pats))
+        out[kind][0] += e.self_device_time_total / 1e3
+        out[kind][1] += e.count
+    return {k: tuple(v) for k, v in out.items()}
+
+
+def resnet_train_phase():
+    """The image main path: ResNet-50 at full width through
+    create_communicator("pure_nccl", allreduce_grad_dtype=bf16) ->
+    bcast_data -> create_multi_node_optimizer(SGD momentum) ->
+    build_train_step(model_state=running statistics) on a 1-rank NCCL
+    group; K1's count set to 0 just before the timed steps and read just
+    after.  Then the same step on the codec-none wire, in turns."""
+    import torch.distributed as dist
+
+    from chainermn_tpu_torch import (build_train_step, create_communicator,
+                                     create_multi_node_optimizer)
+    from chainermn_tpu_torch.models import ResNet50, flax_ordered_parameters
+    from chainermn_tpu_torch.ops.losses import softmax_cross_entropy
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        comm = create_communicator("pure_nccl",
+                                   allreduce_grad_dtype=torch.bfloat16)
+        t0 = time.perf_counter()
+        model = ResNet50(num_classes=N_CLASSES).to(comm.device)
+        comm.bcast_data(model)
+        leaves = [p for _, p in flax_ordered_parameters(model)]
+
+        def make_step(wire):
+            opt = create_multi_node_optimizer(
+                torch.optim.SGD(leaves, lr=0.1, momentum=0.9), comm, wire=wire)
+            step = build_train_step(
+                comm, lambda b: softmax_cross_entropy(model(b[0]), b[1]), opt,
+                model_state=list(model.buffers()))
+            return opt, step
+
+        opt, step = make_step("auto")
+        _, step_none = make_step("none")
+        plan = opt.wire_plan()
+        n_params = sum(p.numel() for p in model.parameters())
+        batch = image_batch(comm.device)
+        log(f"resnet50: {n_params} params, {len(leaves)} wire leaves; "
+            f"{comm!r}, backend {comm.backend}; wire {opt.wire.codec}, "
+            f"{plan.describe()}; set up in {time.perf_counter() - t0:.1f}s")
+
+        for _ in range(IMAGE_WARMUP):
+            check(np.isfinite(float(step(batch)["loss"])),
+                  "warm-up loss not finite")
+            check(np.isfinite(float(step_none(batch)["loss"])),
+                  "warm-up loss (codec none) not finite")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        # the main path: every count set to 0 just before, read just after
+        fcs.fused_cast_scale.launches = 0
+        losses, times = timed_steps(step, batch, IMAGE_STEPS)
+        launches = fcs.fused_cast_scale.launches
+        peak = torch.cuda.max_memory_allocated()
+        want = 2 * plan.n_buckets * IMAGE_STEPS
+        check(launches == want, f"fused_cast_scale launches {launches} != "
+              f"2 x {plan.n_buckets} buckets x {IMAGE_STEPS} steps")
+        check(all(np.isfinite(losses)), f"non-finite loss: {losses}")
+        # the median step: a first timed step can stall (allocator
+        # growth, clocks), and the mean would carry it
+        median_ms = float(np.median(times))
+        ips = IMAGE_BATCH / (median_ms / 1e3)
+        log(f"resnet50 bf16 wire: {IMAGE_STEPS} steps of {IMAGE_BATCH} x "
+            f"{IMAGE}^2: losses {losses}; step ms "
+            f"{[round(t, 3) for t in times]} (median {median_ms:.3f}, mean "
+            f"{np.mean(times):.3f}); "
+            f"{ips:.1f} images/s; peak memory {peak / 2**30:.2f} GiB; "
+            f"fused_cast_scale launches {launches} = 2 x {plan.n_buckets} "
+            f"buckets x {IMAGE_STEPS} steps")
+
+        # the codec-none wire (no K1) and the bf16 wire again, in turns
+        n0 = fcs.fused_cast_scale.launches
+        losses_none, times_none = timed_steps(step_none, batch, IMAGE_STEPS)
+        check(fcs.fused_cast_scale.launches == n0,
+              "the codec-none wire launched fused_cast_scale")
+        check(all(np.isfinite(losses_none)), f"non-finite loss: {losses_none}")
+        _, times_again = timed_steps(step, batch, IMAGE_STEPS)
+        none_ms = float(np.median(times_none))
+        again_ms = float(np.median(times_again))
+        log(f"resnet50 codec none: step ms "
+            f"{[round(t, 3) for t in times_none]} (median {none_ms:.3f}, "
+            f"{IMAGE_BATCH / none_ms * 1e3:.1f} images/s); bf16 wire again: "
+            f"median {again_ms:.3f} ms; bf16 - none = "
+            f"{(median_ms + again_ms) / 2 - none_ms:+.3f} ms a step (medians)")
+
+        busy, wall, n_kernels, kernels = profile_train_step(step, batch)
+        # the profiler's own cost per launch stretches the profiled step
+        # (thousands of launches), not the kernels: idle share against
+        # the unprofiled steps
+        idle = 1 - busy / median_ms
+        log(f"profile resnet50 step: device busy {busy:.3f} ms in "
+            f"{n_kernels} kernel launches; the profiled step took {wall:.3f}"
+            f" ms on the host clock, the unprofiled ones {median_ms:.3f} ms "
+            f"(median): "
+            f"idle share {idle:.1%} of an unprofiled step")
+        for e in kernels[:10]:
+            log(f"  {e.self_device_time_total / 1e3:9.3f} ms x{e.count:<4d} "
+                f"{e.key[:90]}")
+        shares = kernel_categories(kernels)
+        log("profile resnet50 step by kind: " + ", ".join(
+            f"{k} {ms:.3f} ms ({ms / busy:.1%}, {n} launches)"
+            for k, (ms, n) in shares.items()))
+        return {"launches": launches, "steps": IMAGE_STEPS,
+                "buckets": plan.n_buckets, "losses": losses,
+                "step_ms": times, "images_per_s": ips,
+                "peak_gib": peak / 2**30, "device_busy_ms": busy,
+                "profiled_step_ms": wall, "idle_share": idle,
+                "device_ms_by_kind": {k: v[0] for k, v in shares.items()},
+                "none_step_ms": times_none, "bf16_again_step_ms": times_again}
+    finally:
+        dist.destroy_process_group()
+
+
+def trainer_phase(resnet_buckets):
+    """The Trainer path on the card: the MNIST example's twin (MLP 1000,
+    bf16 wire) for a few epochs through Trainer + Evaluator + LogReport /
+    PrintReport / Throughput, then the ImageNet example's twin with
+    ResNet-50 for a few iterations; K1's count set to 0 just before each
+    and read just after."""
+    from chainermn_tpu_torch.comm_wire import make_plan
+    from chainermn_tpu_torch.examples import train_imagenet, train_mnist
+    from chainermn_tpu_torch.models import MLP, flax_leaf_specs
+
+    mlp_buckets = make_plan(flax_leaf_specs(MLP(n_units=1000))).n_buckets
+    epochs, n_train, batch = 3, 8192, 512
+    fcs.fused_cast_scale.launches = 0
+    entries = train_mnist.main([
+        "--epoch", str(epochs), "--n-train", str(n_train), "--n-test", "2048",
+        "--batchsize", str(batch), "--allreduce-grad-dtype", "bfloat16"])
+    launches = fcs.fused_cast_scale.launches
+    for e in entries:
+        log("mnist epoch: " + json.dumps(e))
+    losses = [e["loss"] for e in entries]
+    check(len(entries) == epochs, f"{len(entries)} log entries")
+    check(all(b < a for a, b in zip(losses, losses[1:])),
+          f"MNIST loss does not fall epoch over epoch: {losses}")
+    accuracy = entries[-1]["val/accuracy"]
+    check(accuracy > 0.1, f"validation accuracy {accuracy} at chance")
+    iters = entries[-1]["iteration"]
+    check(launches == 2 * mlp_buckets * iters,
+          f"MNIST fused_cast_scale launches {launches} != 2 x {mlp_buckets} "
+          f"buckets x {iters} iterations")
+    log(f"mnist twin: losses {losses}, fused_cast_scale launches {launches}"
+        f" = 2 x {mlp_buckets} buckets x {iters} iterations")
+
+    fcs.fused_cast_scale.launches = 0
+    entries = train_imagenet.main([
+        "--arch", "resnet50", "--batchsize", str(IMAGE_BATCH), "--n-train",
+        str(4 * IMAGE_BATCH), "--n-val", str(IMAGE_BATCH),
+        "--allreduce-grad-dtype", "bfloat16"])
+    im_launches = fcs.fused_cast_scale.launches
+    final = entries[-1]
+    log("imagenet twin: " + json.dumps(final))
+    check(np.isfinite(final["loss"]) and np.isfinite(final["val/loss"]),
+          f"non-finite ImageNet twin losses: {final}")
+    check(im_launches == 2 * resnet_buckets * final["iteration"],
+          f"ImageNet twin launches {im_launches} != 2 x {resnet_buckets} "
+          f"buckets x {final['iteration']} iterations")
+    return {"mnist_losses": losses, "mnist_launches": launches,
+            "mnist_val_accuracy": accuracy,
+            "imagenet_final": final, "imagenet_launches": im_launches}
+
+
 def build_all():
     """Every kernel source built from the checkout, in parallel (one
     nvcc each); prints build time, registers, shared memory and spills
@@ -777,7 +1157,7 @@ def build_all():
     import re
     from concurrent.futures import ThreadPoolExecutor
 
-    names = ("flash_decode", "flash_attention")
+    names = ("flash_decode", "flash_attention", "fused_cast_scale")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
         texts = dict(zip(names, pool.map(_build.build, names)))
@@ -788,15 +1168,33 @@ def build_all():
         for line in text.splitlines():
             m = re.search(r"Compiling entry function '(\S+)'", line)
             if m:
-                k = re.search(r"(flash_[a-z_]+_kernel)I(13__nv_bfloat16|f)Li(\d+)E",
-                              m.group(1))
-                kernel = (f"{k.group(1)}<{'bf16' if k.group(2) != 'f' else 'f32'},"
-                          f"{k.group(3)}>" if k else m.group(1)[:60])
+                kernel = kernel_name(m.group(1))
             elif "registers" in line or "spill" in line:
                 log(f"  {name} {kernel}: {line.strip()}")
     log("  flash_attention dynamic shared memory a block: " + ", ".join(
         f"{k} d{d} {fa.smem_bytes(k, d)} bytes"
         for k in ("forward", "backward") for d in (64, 128)))
+
+
+# type names in the kernels' mangled names
+MANGLED_TYPES = {"f": "f32", "13__nv_bfloat16": "bf16", "6__half": "f16"}
+
+
+def kernel_name(mangled):
+    """A kernel's template instance from its mangled name."""
+    import re
+
+    types = "|".join(MANGLED_TYPES)
+    k = re.search(rf"(flash_[a-z_]+_kernel)I({types})Li(\d+)E", mangled)
+    if k:
+        return f"{k.group(1)}<{MANGLED_TYPES[k.group(2)]},{k.group(3)}>"
+    k = re.search(rf"(fused_cast_scale_kernel)I({types})({types}|S1_)Li(\d+)E",
+                  mangled)
+    if k:
+        a = MANGLED_TYPES[k.group(2)]
+        b = a if k.group(3) == "S1_" else MANGLED_TYPES[k.group(3)]
+        return f"{k.group(1)}<{a},{b},{k.group(4)}>"
+    return mangled[:60]
 
 
 def kernel_record(name, source, replaces, launches, r, dtype):
@@ -841,9 +1239,16 @@ def main():
     serve_path = serve_phase()
     flash = flash_kernel_phase()
     train_path = train_phase()
+    plan = resnet50_plan()
+    cast = cast_kernel_phase([b.size for b in plan.buckets])
+    image_path = resnet_train_phase()
+    check(image_path["buckets"] == plan.n_buckets, "ResNet-50 plan drifted")
+    trainer_path = trainer_phase(plan.n_buckets)
 
     log("serve summary: " + json.dumps(serve_path))
     log("train summary: " + json.dumps(train_path))
+    log("resnet50 summary: " + json.dumps(image_path))
+    log("trainer summary: " + json.dumps(trainer_path))
     log("flash_decode float32: " + json.dumps(kern[torch.float32]))
     log("flash attention float32: " + json.dumps(flash[torch.float32]))
     # the kernels' record: each main path's type (bf16) at its shapes
@@ -857,6 +1262,14 @@ def main():
             name, "chainermn_tpu_torch/ops/csrc/flash_attention.cu",
             FLASH_REPLACES[name], train_path["launches"][name],
             flash[torch.bfloat16][name], "bfloat16"))
+    # K1: means per launch over one ResNet-50 step's 2 x buckets launches
+    records.append(kernel_record(
+        "fused_cast_scale", "chainermn_tpu_torch/ops/csrc/fused_cast_scale.cu",
+        "chainermn_tpu/ops/pallas_attention.py:1463", image_path["launches"],
+        cast, "float32->bfloat16, bfloat16->float32"))
+    records[-1].update(tolerance="bit-exact", per_step_ms=cast["per_step_ms"],
+                       per_step_bound_ms=cast["per_step_bound_ms"],
+                       bucket_sizes=[b.size for b in plan.buckets])
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -124,24 +124,24 @@ def test_resolve_wire_and_codec_of_dtype():
         cw.resolve_wire("int8", comm)
 
 
-def _buckets(seed):
-    """Per-rank buckets (2 ranks) in the dtypes the wire carries."""
+def _buckets(seed, ranks=2):
+    """Per-rank buckets in the dtypes the wire carries."""
     rng = np.random.RandomState(seed)
     out = []
     for n, dtype, scale in ((1000, "float32", 1e-3), (300, "bfloat16", 1.0),
                             (257, "float16", 10.0), (64, "float32", 1e3)):
-        a = (rng.randn(2, n) * scale).astype(np.float32)
+        a = (rng.randn(ranks, n) * scale).astype(np.float32)
         out.append((torch.from_numpy(a).to(getattr(torch, dtype)), dtype))
     return out
 
 
-def _jax_reduce(buckets, codec):
-    mesh = Mesh(np.array(jax.devices("cpu")[:2]), ("mn",))
+def _jax_reduce(buckets, codec, n=2):
+    mesh = Mesh(np.array(jax.devices("cpu")[:n]), ("mn",))
     arrays = [jnp.asarray(t.float().numpy()).astype(getattr(jnp, d))
               for t, d in buckets]
 
     def body(*bs):
-        means, _ = jcw.reduce_buckets([b[0] for b in bs], ("mn",), 2,
+        means, _ = jcw.reduce_buckets([b[0] for b in bs], ("mn",), n,
                                       jcw.WireConfig(codec=codec))
         return tuple(m[None] for m in means)
 
@@ -178,3 +178,122 @@ def test_cast_back_before_divide(wire_world):
     t, _ = buckets[0]
     want = (t[0].bfloat16() + t[1].bfloat16()).float() / 2
     np.testing.assert_array_equal(ranks[0]["bf16"][0][0], want.numpy())
+
+
+def _exact_buckets(seed, ranks):
+    """Per-rank buckets whose sums over the ranks are exact in bf16 and
+    fp16 in any order: small integers times a power of two that every
+    rank shares per element."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for n, dtype in ((1000, "float32"), (300, "bfloat16"), (64, "float32")):
+        k = rng.randint(-15, 16, (ranks, n)).astype(np.float32)
+        a = k * np.exp2(rng.randint(-12, 4, n)).astype(np.float32)
+        out.append((torch.from_numpy(a).to(getattr(torch, dtype)), dtype))
+    return out
+
+
+@pytest.fixture(scope="module")
+def wire_world3():
+    """One gloo world of 3 reduces general buckets and exact-sum ones."""
+    general, exact = _buckets(6, ranks=3), _exact_buckets(7, ranks=3)
+    ranks = torch_world.run_world(torch_world.wire_worker, 3,
+                                  [t for t, _ in general + exact],
+                                  timeout=120)
+    k = len(general)
+    split = [{c: r[c][:k] for c in CODECS_RUN} for r in ranks]
+    exact_ranks = [{c: r[c][k:] for c in CODECS_RUN} for r in ranks]
+    return (general, split), (exact, exact_ranks), ranks
+
+
+CODECS_RUN = ("none", "f32", "bf16", "f16")
+# the cast codecs over the bucket dtypes they cast: fp32 and bf16
+CAST_CASES = [("bf16", "float32"), ("f16", "float32"), ("f16", "bfloat16"),
+              ("bf16", "bfloat16")]
+
+
+def _assert_cast_codec_equal(buckets, ranks, codec, native, world):
+    ref = _jax_reduce(buckets, codec, n=world)
+    checked = 0
+    for res in ranks:
+        for (got, dtype), (_, bucket_dtype), r in zip(res[codec], buckets,
+                                                      ref):
+            if bucket_dtype == native:
+                assert dtype == f"torch.{native}"
+                np.testing.assert_array_equal(got, r)
+                checked += 1
+    assert checked == world * sum(d == native for _, d in buckets)
+
+
+@pytest.mark.parametrize("codec,native", CAST_CASES)
+def test_cast_legs_bit_equal_to_jax_world2(wire_world, codec, native):
+    """World 2: with both cast legs on the fused cast/scale kernel (its
+    plain version on the CPU), and an fp32 bucket's divide fused into
+    the cast back as a multiply by 1/2, the means are bit-identical to
+    the JAX reduce_buckets on every rank (tolerance 0)."""
+    buckets, ranks = wire_world
+    _assert_cast_codec_equal(buckets, ranks, codec, native, 2)
+
+
+@pytest.mark.parametrize("codec,native", CAST_CASES)
+def test_cast_legs_bit_equal_to_jax_world3(wire_world3, codec, native):
+    """World 3, where the kernel casts back with scale 1 and the divide
+    by 3 follows it: bit-identical to the JAX reduce_buckets (tolerance
+    0) on buckets whose sum over the ranks is exact in the wire dtype.
+    On other buckets the sum itself differs (see
+    test_world3_sum_rounds_per_addition); the legs and the divide are
+    what this test holds equal."""
+    _, (buckets, ranks), _ = wire_world3
+    _assert_cast_codec_equal(buckets, ranks, codec, native, 3)
+
+
+@pytest.mark.parametrize("codec", ["bf16", "f16"])
+def test_world3_sum_rounds_per_addition(wire_world3, codec):
+    """Over 3 ranks the wire's sum is the collective's: gloo (and NCCL's
+    ring) round to the wire dtype after each addition, while XLA's CPU
+    psum adds the bf16/fp16 payloads in fp32 and rounds once.  So on
+    general buckets the means differ from the JAX package's by the
+    rounding of the partial sums: at most a half-ulp of the wire dtype,
+    twice, of the ranks' summed magnitudes (over n = 3: 2^-8 and 2^-11
+    relative for bf16 and fp16).  Measured: 20-23 % of a bucket's
+    elements differ (none for fp16 over bf16 buckets), the largest gap
+    1.0e-5 on the fp32 bucket of values ~1e-3, and at most 1.18x the
+    analysis's bound (a bf16 bucket adds the rounding of its divide).
+    The bound is twice the analysis's."""
+    (buckets, ranks), _, _ = wire_world3
+    ref = _jax_reduce(buckets, codec, n=3)
+    half_ulp = {"bf16": 2.0 ** -8, "f16": 2.0 ** -11}[codec]
+    for res in ranks:
+        for (got, _), (t, native), r in zip(res[codec], buckets, ref):
+            if native not in ("float32", "bfloat16"):
+                continue
+            mag = t.float().abs().sum(0).numpy() / 3
+            bound = 2 * 2 * half_ulp * mag + 1e-30
+            assert np.all(np.abs(got - r) <= bound), (codec, native)
+
+
+@pytest.mark.parametrize("world", [2, 3])
+def test_cast_legs_run_through_fused_cast_scale(wire_world, wire_world3,
+                                                world):
+    """Each cast codec calls the kernel twice for a bucket whose dtype
+    differs from the wire's (to the wire with scale 1, back with scale
+    1/n for an fp32 bucket at a power-of-two world, else scale 1 and a
+    divide after it) and never for one that matches; codec none never."""
+    if world == 2:
+        buckets, ranks = wire_world
+    else:
+        (general, _), (exact, _), ranks = wire_world3
+        buckets = general + exact
+    wire = {"bf16": "torch.bfloat16", "f16": "torch.float16",
+            "f32": "torch.float32"}
+    for codec in CODECS_RUN:
+        want = []
+        for _, native in buckets:
+            native = f"torch.{native}"
+            if codec == "none" or wire[codec] == native:
+                continue
+            back = 1.0 / world if (native == "torch.float32"
+                                   and world == 2) else 1.0
+            want += [(native, wire[codec], 1.0), (wire[codec], native, back)]
+        for res in ranks:
+            assert res["calls"][codec] == want, codec

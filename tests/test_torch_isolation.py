@@ -1,7 +1,7 @@
 """The port stands alone: no module of ``chainermn_tpu_torch`` and not
 ``chip_smoke.py`` imports JAX, flax, optax or the JAX package, importing
-the package loads no subpackage, and the serving and training paths run
-with those modules made unimportable."""
+the package loads no subpackage, and the serving, LM training and image
+training paths run with those modules made unimportable."""
 
 import ast
 import os
@@ -88,17 +88,33 @@ data = chainermn_tpu_torch.scatter_dataset(
 toks = torch.from_numpy(np.stack([data[i] for i in range(2)]))
 assert np.isfinite(float(step(toks)["loss"]))
 dist.destroy_process_group()
+
+from chainermn_tpu_torch.examples import train_imagenet, train_mnist
+
+log = train_mnist.main(["--device", "cpu", "--epoch", "1", "--n-train", "256",
+                        "--n-test", "64", "--batchsize", "64", "--unit", "32",
+                        "--allreduce-grad-dtype", "bfloat16"])
+assert np.isfinite(log[-1]["loss"])
+log = train_imagenet.main(["--device", "cpu", "--arch", "resnet18",
+                           "--image-size", "32", "--n-train", "8",
+                           "--n-val", "8", "--batchsize", "8",
+                           "--num-classes", "10"])
+assert np.isfinite(log[-1]["val/loss"])
 assert not any(m.split(".")[0] in BANNED for m in sys.modules)
 print("ok")
 """
 
 
-def test_port_imports_and_serves_with_jax_blocked():
+def test_port_imports_and_serves_with_jax_blocked(tmp_path):
+    """The serving path, a training step, and the MNIST and ImageNet
+    examples' twins (which write their logs under the working
+    directory) run with JAX and the JAX package unimportable."""
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
     r = subprocess.run(
         [sys.executable, "-c", _BLOCKED_RUN.format(banned=BANNED)],
-        capture_output=True, text=True, cwd=REPO, env=env, timeout=300,
+        capture_output=True, text=True, cwd=str(tmp_path), env=env,
+        timeout=300,
     )
     assert r.returncode == 0, r.stdout + r.stderr
     assert r.stdout.strip().endswith("ok")

@@ -240,3 +240,123 @@ def test_dp_train_step_across_cards():
         for k, v in res["params"].items():
             np.testing.assert_array_equal(v, ranks[0]["params"][k],
                                           err_msg=k)
+
+
+# --- fused cast and scale: K1, both cast legs of the gradient wire ---
+
+CAST_DTYPES = ["float32", "bfloat16", "float16"]
+
+
+def _cast_input(n, dtype, seed):
+    """n values over many binades, with NaN, +-inf, -0, fp16 overflow
+    and fp32 subnormals among them."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(n, generator=g) * torch.exp2(
+        torch.randint(-30, 30, (n,), generator=g).float())
+    special = torch.tensor([float("nan"), float("inf"), -float("inf"), -0.0,
+                            7e4, -7e4, 1e-40, 3.0e-8])
+    x[:min(n, len(special))] = special[:n]
+    return x.to(getattr(torch, dtype))
+
+
+def _resnet50_bucket_size():
+    from chainermn_tpu_torch.comm_wire import make_plan
+    from chainermn_tpu_torch.models import ResNet50, flax_leaf_specs
+
+    plan = make_plan(flax_leaf_specs(ResNet50(num_classes=1000)))
+    return max(b.size for b in plan.buckets)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", CAST_DTYPES)
+@pytest.mark.parametrize("in_dtype", CAST_DTYPES)
+def test_fused_cast_scale_bit_exact(in_dtype, out_dtype):
+    """K1 against its plain version, bit for bit (NaN positions as
+    positions), for every dtype pair: ragged sizes, views at odd element
+    offsets into a larger buffer (the vector body's head and tail), the
+    largest bucket of ResNet-50's wire plan, scales 1, 1/2 and 1/3."""
+    _need_card()
+    from chainermn_tpu_torch.ops.fused_cast_scale import (
+        cast_scale_reference, fused_cast_scale, same_bits)
+
+    out_dt = getattr(torch, out_dtype)
+    big = _cast_input(_resnet50_bucket_size() + 16, in_dtype, 1).cuda()
+    cases = [_cast_input(n, in_dtype, n).cuda() for n in (1, 7, 1027, 4099)]
+    cases += [big[off:off + n] for off, n in ((1, 1027), (3, 4096),
+                                              (5, 70001))]
+    cases.append(big[:-16])
+    for x in cases:
+        for scale in (1.0, 0.5, 1.0 / 3.0):
+            n0 = fused_cast_scale.launches
+            got = fused_cast_scale(x, scale, out_dt)
+            want = cast_scale_reference(x, scale, out_dt)
+            torch.cuda.synchronize()
+            assert fused_cast_scale.launches == n0 + 1
+            assert same_bits(got, want), (x.numel(), x.storage_offset(),
+                                          scale)
+
+
+@pytest.mark.cuda
+def test_fused_cast_scale_empty_and_refusals():
+    _need_card()
+    from chainermn_tpu_torch.ops.fused_cast_scale import fused_cast_scale
+
+    n0 = fused_cast_scale.launches
+    out = fused_cast_scale(torch.zeros(0, device="cuda"), 0.5, torch.bfloat16)
+    assert out.shape == (0,) and out.dtype == torch.bfloat16
+    assert fused_cast_scale.launches == n0
+    with pytest.raises(TypeError):
+        fused_cast_scale(torch.zeros(4, device="cuda", dtype=torch.float64),
+                         1.0, torch.float32)
+    with pytest.raises(ValueError):
+        fused_cast_scale(torch.zeros(4, 4, device="cuda").t(), 1.0,
+                         torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_fused_cast_scale_rejects_truncating_cast():
+    """Negative control: a bf16 cast that truncates the mantissa instead
+    of rounding to nearest even fails the bit-exact check."""
+    _need_card()
+    from chainermn_tpu_torch.ops.fused_cast_scale import (
+        fused_cast_scale, same_bits)
+
+    x = _cast_input(4099, "float32", 2).cuda()
+    x[torch.isnan(x)] = 0.0
+    truncated = ((x.view(torch.int32) >> 16).to(torch.int16)
+                 .view(torch.bfloat16))
+    assert not same_bits(truncated, fused_cast_scale(x, 1.0, torch.bfloat16))
+
+
+@pytest.mark.cuda
+def test_reduce_buckets_launches_fused_cast_scale():
+    """On a 1-rank NCCL group: each cast codec launches K1 twice a
+    bucket whose dtype differs from the wire's, none when it does not,
+    and the means equal the plain casts."""
+    _need_card()
+    import torch.distributed as dist
+
+    from chainermn_tpu_torch.comm_wire import WireConfig, reduce_buckets
+    from chainermn_tpu_torch.ops.fused_cast_scale import (
+        cast_scale_reference, fused_cast_scale, same_bits)
+
+    buckets = [_cast_input(n, "float32", n).cuda() for n in (1000, 257, 64)]
+    for b in buckets:
+        b[torch.isnan(b) | torch.isinf(b)] = 1.0
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        for codec, launches in (("none", 0), ("f32", 0), ("bf16", 6),
+                                ("f16", 6)):
+            n0 = fused_cast_scale.launches
+            means = reduce_buckets(buckets, 1, WireConfig(codec=codec))
+            torch.cuda.synchronize()
+            assert fused_cast_scale.launches - n0 == launches, codec
+            for m, b in zip(means, buckets):
+                wire = {"bf16": torch.bfloat16, "f16": torch.float16}.get(
+                    codec, torch.float32)
+                want = cast_scale_reference(
+                    cast_scale_reference(b, 1.0, wire), 1.0, torch.float32)
+                assert same_bits(m, want), codec
+    finally:
+        dist.destroy_process_group()

@@ -167,14 +167,26 @@ def collectives_worker(rank, world_size, inputs, names):
 
 
 def wire_worker(rank, world_size, buckets):
-    """``reduce_buckets`` of this rank's row of each bucket, per codec."""
-    from chainermn_tpu_torch.comm_wire import WireConfig, reduce_buckets
+    """``reduce_buckets`` of this rank's row of each bucket, per codec,
+    and the fused cast/scale calls of each codec's cast legs (input
+    dtype, output dtype, scale)."""
+    from chainermn_tpu_torch.comm_wire import WireConfig, codecs, reduce_buckets
 
+    calls = []
+    kernel = codecs.fused_cast_scale
+
+    def recording(x, scale, dtype):
+        calls.append((str(x.dtype), str(dtype), scale))
+        return kernel(x, scale, dtype)
+
+    codecs.fused_cast_scale = recording
     mine = [b[rank].clone() for b in buckets]
-    out = {}
+    out = {"calls": {}}
     for codec in ("none", "f32", "bf16", "f16"):
+        calls.clear()
         means = reduce_buckets(mine, world_size, WireConfig(codec=codec))
         out[codec] = [(m.float().numpy(), str(m.dtype)) for m in means]
+        out["calls"][codec] = list(calls)
     return out
 
 
@@ -292,6 +304,101 @@ def dp_card_worker(rank, world_size, cfg, state, dataset, steps):
             "launches": fa.flash_forward.launches - n0,
             "params": {k: v.detach().float().cpu().numpy()
                        for k, v in lm.state_dict().items()}}
+
+
+def image_dp_worker(rank, world_size, arch, variables, data, steps, lr,
+                    momentum, dtype):
+    """The port's image data-parallel path at this world size: the model
+    from the flax variables (numpy), bcast_data, scatter_dataset shards,
+    SGD (momentum) over the flax-ordered leaves through the bf16 wire,
+    the running statistics mean-reduced after each update; then the
+    multi-node evaluator and the persistent-state all-reduce."""
+    import chainermn_tpu_torch as cmn
+    from chainermn_tpu_torch.extensions import AllreducePersistent, Evaluator
+    from chainermn_tpu_torch.iterators import EpochIterator
+    from chainermn_tpu_torch.models import (
+        MLP, ResNet50, flax_ordered_parameters, mlp_params_from_flax,
+        resnet_params_from_flax)
+    from chainermn_tpu_torch.ops.losses import accuracy, softmax_cross_entropy
+
+    comm = cmn.create_communicator("pure_nccl",
+                                   allreduce_grad_dtype=torch.bfloat16)
+    if arch == "mlp":
+        model = MLP(n_units=64, dtype=getattr(torch, dtype))
+        model.load_state_dict(mlp_params_from_flax(variables))
+    else:
+        model = ResNet50(num_classes=10, num_filters=8,
+                         dtype=getattr(torch, dtype))
+        model.load_state_dict(resnet_params_from_flax(variables))
+    if rank:  # rank 1 starts elsewhere: bcast_data must overwrite it
+        with torch.no_grad():
+            for p in model.parameters():
+                p.add_(1.0)
+    comm.bcast_data(model)
+    x, y = data
+    dataset = list(zip(x, y))
+    shard = cmn.scatter_dataset(dataset, comm, shuffle=True, seed=5)
+    opt = cmn.create_multi_node_optimizer(torch.optim.SGD(
+        [p for _, p in flax_ordered_parameters(model)], lr=lr,
+        momentum=momentum), comm)
+    step = cmn.build_train_step(
+        comm, lambda b: softmax_cross_entropy(model(b[0]), b[1]), opt,
+        model_state=list(model.buffers()))
+    per = len(shard) // steps
+    losses = []
+    for i in range(steps):
+        rows = [shard[j] for j in range(i * per, (i + 1) * per)]
+        batch = (torch.from_numpy(np.stack([r[0] for r in rows])),
+                 torch.from_numpy(np.stack([r[1] for r in rows])))
+        losses.append(float(step(batch)["loss"]))
+    out = {"indices": shard.indices.copy(), "losses": losses,
+           "state": {k: v.detach().numpy().copy()
+                     for k, v in model.state_dict().items()},
+           "plan_hash": opt.wire_plan().plan_hash(),
+           "codec": opt.wire.codec}
+
+    # the non-finite guard: rank 1 alone sees a NaN loss; "skip" must
+    # leave the parameters and the running statistics as they were
+    def poisoned(b):
+        loss = softmax_cross_entropy(model(b[0]), b[1])
+        return loss * float("nan") if rank == 1 else loss
+
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    skip = cmn.build_train_step(comm, poisoned, opt, nonfinite="skip",
+                                model_state=list(model.buffers()))
+    out["skip_finite"] = skip(batch)["grads_finite"]
+    out["skip_unchanged"] = all(torch.equal(before[k], v)
+                                for k, v in model.state_dict().items())
+
+    def metric(b):
+        logits = model(b[0])
+        return {"loss": softmax_cross_entropy(logits, b[1]),
+                "accuracy": accuracy(logits, b[1])}
+
+    ev = Evaluator(lambda: EpochIterator(shard, per), metric, comm,
+                   model=model)
+    out["local_eval"] = Evaluator(lambda: EpochIterator(shard, per), metric,
+                                  _Local(comm), model=model).evaluate()
+    out["eval"] = ev.evaluate()
+    out["training_after_eval"] = model.training
+    with torch.no_grad():
+        for b in model.buffers():
+            b.fill_(float(rank))
+    AllreducePersistent(model, comm)()
+    out["persistent"] = sorted({float(b.flatten()[0])
+                                for b in model.buffers()})
+    return out
+
+
+class _Local:
+    """A communicator of one rank's own view: the evaluator's per-rank
+    metrics before the mean."""
+
+    def __init__(self, comm):
+        self.device = comm.device
+
+    def allreduce(self, x, op="sum"):
+        return x.clone()
 
 
 # ----------------------------------------------------------------------

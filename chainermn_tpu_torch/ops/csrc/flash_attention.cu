@@ -1,11 +1,15 @@
-// Flash attention for training on Hopper, sm_90a: the forward (K2) and the
-// FlashAttention-2 backward as two kernels, dq (K3) and dk/dv (K4).
+// Flash attention for training on Hopper's CUDA cores, sm_90a: the fp32
+// forward (K2) and dk/dv (K4), and dq (K3) in fp32 and bf16.  The bf16 K2
+// and K4 run on the tensor cores, in flash_attention_sm90.cu; fp32 stays
+// here because a tensor-core product in fp32 means TF32 (10 bits of
+// mantissa), which fails the fp32 tolerance (rtol 2^-20).
 //
 // Replaces the TPU kernels of chainermn_tpu/ops/pallas_attention.py:
 //   flash_fwd      <- `_flash_fwd_kernel` (:367, launched by `_flash_forward`
-//                     at :503)
+//                     at :503), fp32
 //   flash_bwd_dq   <- `_flash_bwd_dq_kernel` (:619, `_flash_backward` :878)
-//   flash_bwd_dkv  <- `_flash_bwd_dkv_kernel` (:747, `_flash_backward` :895)
+//   flash_bwd_dkv  <- `_flash_bwd_dkv_kernel` (:747, `_flash_backward` :895),
+//                     fp32
 // They compute the same functions, not the same blocks.  q, k, v, out and
 // the gradients are (batch, seq, heads, d), indexed through the strides the
 // wrapper passes (the last dim contiguous): no (b*h, s, d) copy and no
@@ -37,14 +41,12 @@
 //   warp shuffles; P (or dS) goes through shared memory for the next product;
 // * dq and dk/dv are separate kernels that each own their output tile, so
 //   there are no atomics and the results are deterministic.
-// Later work, not done here: tensor-core products (mma.sync / wgmma) with P
-// and dS rounded to bf16 (a numerics change of its own), cp.async or TMA
-// double buffering of the next tile, and fewer shared-memory bytes per
-// block (two blocks on an SM).
+// Later work, not done here: dq on the tensor cores with dS split into bf16
+// hi + lo as flash_attention_sm90.cu does, and cp.async double buffering.
 //
 // Plain C interface, bound through ctypes: each entry launches on the given
 // stream, allocates nothing, and returns cudaGetLastError() (0 on success).
-// dtype 0 is float32, 1 is bfloat16; d is 64 or 128.
+// dtype 0 is float32, 1 is bfloat16 (dq only); d is 64 or 128.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -225,11 +227,11 @@ __device__ __forceinline__ void store_tile(T* dst, Strides st, int batch,
   }
 }
 
-// The forward: one block per (q tile, batch*head).
-template <typename T, int D>
+// The fp32 forward: one block per (q tile, batch*head).
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-    flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ out,
+    flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ out,
                      float* __restrict__ lse, Strides sq, Strides sk,
                      Strides sv, Strides so, int heads, int s_q, int s_k,
                      float scale, int causal) {
@@ -247,7 +249,7 @@ __global__ void __launch_bounds__(kThreads)
   const int batch = bh / heads;
   const int head = bh % heads;
 
-  load_tile<T, D>(sQ, q, sq, batch, head, first_q, s_q, scale);
+  load_tile<float, D>(sQ, q, sq, batch, head, first_q, s_q, scale);
   int n_k = (s_k + kTile - 1) / kTile;
   if (causal) n_k = min(n_k, (first_q + kTile - 1) / kTile + 1);
 
@@ -263,8 +265,8 @@ __global__ void __launch_bounds__(kThreads)
   for (int kt = 0; kt < n_k; ++kt) {
     const int first_k = kt * kTile;
     __syncthreads();  // the previous tile's readers are done
-    load_tile<T, D>(sK, k, sk, batch, head, first_k, s_k, 1.f);
-    load_tile<T, D>(sV, v, sv, batch, head, first_k, s_k, 1.f);
+    load_tile<float, D>(sK, k, sk, batch, head, first_k, s_k, 1.f);
+    load_tile<float, D>(sV, v, sv, batch, head, first_k, s_k, 1.f);
     __syncthreads();
     float s[4][4];
     mm_nt<D>(sQ, sK, s);
@@ -311,7 +313,7 @@ __global__ void __launch_bounds__(kThreads)
     if (tx == 0 && r < s_q)
       lse[static_cast<long long>(bh) * s_q + r] = m[i] + logf(den);
   }
-  store_tile<T, D>(out, so, batch, head, first_q, s_q, acc, 1.f);
+  store_tile<float, D>(out, so, batch, head, first_q, s_q, acc, 1.f);
 }
 
 // Stage the saved lse and delta of rows [row0, row0 + 64) (0 past s_q).
@@ -396,15 +398,18 @@ __global__ void __launch_bounds__(kThreads)
   store_tile<T, D>(dq, sdq, batch, head, first_q, s_q, acc, scale);
 }
 
-// dk/dv: one block per (k tile, batch*head), sweeping the live q tiles.
-// Scores are computed transposed (rows are keys, columns queries).
-template <typename T, int D>
+// fp32 dk/dv: one block per (k tile, batch*head), sweeping the live q
+// tiles.  Scores are computed transposed (rows are keys, columns queries).
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-    flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                         const T* __restrict__ v, const T* __restrict__ dout,
+    flash_bwd_dkv_kernel(const float* __restrict__ q,
+                         const float* __restrict__ k,
+                         const float* __restrict__ v,
+                         const float* __restrict__ dout,
                          const float* __restrict__ lse,
-                         const float* __restrict__ delta, T* __restrict__ dk,
-                         T* __restrict__ dv, Strides sq, Strides sk,
+                         const float* __restrict__ delta,
+                         float* __restrict__ dk, float* __restrict__ dv,
+                         Strides sq, Strides sk,
                          Strides sv, Strides sdo, Strides sdk, Strides sdv,
                          int heads, int s_q, int s_k, float scale,
                          int causal) {
@@ -424,8 +429,8 @@ __global__ void __launch_bounds__(kThreads)
   const int batch = bh / heads;
   const int head = bh % heads;
 
-  load_tile<T, D>(sK, k, sk, batch, head, first_k, s_k, 1.f);
-  load_tile<T, D>(sV, v, sv, batch, head, first_k, s_k, 1.f);
+  load_tile<float, D>(sK, k, sk, batch, head, first_k, s_k, 1.f);
+  load_tile<float, D>(sV, v, sv, batch, head, first_k, s_k, 1.f);
   const int n_q = (s_q + kTile - 1) / kTile;
   // first q tile with a row at or below the diagonal (equal tile sizes)
   const int q0 = causal ? first_k / kTile : 0;
@@ -442,8 +447,8 @@ __global__ void __launch_bounds__(kThreads)
   for (int qt = q0; qt < n_q; ++qt) {
     const int first_q = qt * kTile;
     __syncthreads();
-    load_tile<T, D>(sQ, q, sq, batch, head, first_q, s_q, 1.f);
-    load_tile<T, D>(sdO, dout, sdo, batch, head, first_q, s_q, 1.f);
+    load_tile<float, D>(sQ, q, sq, batch, head, first_q, s_q, 1.f);
+    load_tile<float, D>(sdO, dout, sdo, batch, head, first_q, s_q, 1.f);
     load_rows(s_lse, s_delta, lse, delta, bh, first_q, s_q);
     __syncthreads();
     float st[4][4], dpt[4][4];
@@ -476,8 +481,8 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
     mm_acc<D>(sS, sQ, dk_acc);  // dk += dS^T q
   }
-  store_tile<T, D>(dk, sdk, batch, head, first_k, s_k, dk_acc, scale);
-  store_tile<T, D>(dv, sdv, batch, head, first_k, s_k, dv_acc, 1.f);
+  store_tile<float, D>(dk, sdk, batch, head, first_k, s_k, dk_acc, scale);
+  store_tile<float, D>(dv, sdv, batch, head, first_k, s_k, dv_acc, 1.f);
 }
 
 constexpr int fwd_smem(int d) {
@@ -497,16 +502,16 @@ int set_smem(Kernel kernel, int bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
 }
 
-template <typename T, int D>
+template <int D>
 int fwd(const void* q, const void* k, const void* v, void* out, void* lse,
         const long long* st, int batch, int heads, int s_q, int s_k,
         float scale, int causal, cudaStream_t stream) {
-  auto kernel = flash_fwd_kernel<T, D>;
+  auto kernel = flash_fwd_kernel<D>;
   if (int err = set_smem(kernel, fwd_smem(D))) return err;
   const dim3 grid((s_q + kTile - 1) / kTile, batch * heads);
   kernel<<<grid, kThreads, fwd_smem(D), stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out),
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out),
       static_cast<float*>(lse), strides_at(st, 0), strides_at(st, 1),
       strides_at(st, 2), strides_at(st, 3), heads, s_q, s_k, scale, causal);
   return static_cast<int>(cudaGetLastError());
@@ -530,19 +535,19 @@ int bwd_dq(const void* q, const void* k, const void* v, const void* dout,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int D>
+template <int D>
 int bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
             const void* lse, const void* delta, void* dk, void* dv,
             const long long* st, int batch, int heads, int s_q, int s_k,
             float scale, int causal, cudaStream_t stream) {
-  auto kernel = flash_bwd_dkv_kernel<T, D>;
+  auto kernel = flash_bwd_dkv_kernel<D>;
   if (int err = set_smem(kernel, bwd_smem(D))) return err;
   const dim3 grid((s_k + kTile - 1) / kTile, batch * heads);
   kernel<<<grid, kThreads, bwd_smem(D), stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dk), static_cast<T*>(dv), strides_at(st, 0),
+      static_cast<float*>(dk), static_cast<float*>(dv), strides_at(st, 0),
       strides_at(st, 1), strides_at(st, 2), strides_at(st, 3),
       strides_at(st, 4), strides_at(st, 5), heads, s_q, s_k, scale, causal);
   return static_cast<int>(cudaGetLastError());
@@ -558,6 +563,14 @@ int bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
     default: return static_cast<int>(cudaErrorInvalidValue);      \
   }
 
+// fp32 only (dtype 0): bf16 K2 and K4 are in flash_attention_sm90.cu.
+#define FLASH_DISPATCH_F32(FN, ...)                               \
+  switch (dtype * 1000 + d) {                                     \
+    case 64: return FN<64>(__VA_ARGS__);                          \
+    case 128: return FN<128>(__VA_ARGS__);                        \
+    default: return static_cast<int>(cudaErrorInvalidValue);      \
+  }
+
 }  // namespace
 
 extern "C" {
@@ -569,8 +582,8 @@ int flash_attention_fwd(int dtype, int d, const void* q, const void* k,
                         int s_q, int s_k, float scale, int causal,
                         void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  FLASH_DISPATCH(fwd, q, k, v, out, lse, strides, batch, heads, s_q, s_k,
-                 scale, causal, s)
+  FLASH_DISPATCH_F32(fwd, q, k, v, out, lse, strides, batch, heads, s_q,
+                     s_k, scale, causal, s)
 }
 
 // strides: 5 x (b, s, h) for q, k, v, dout, dq.
@@ -593,12 +606,12 @@ int flash_attention_bwd_dkv(int dtype, int d, const void* q, const void* k,
                             int s_q, int s_k, float scale, int causal,
                             void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  FLASH_DISPATCH(bwd_dkv, q, k, v, dout, lse, delta, dk, dv, strides, batch,
-                 heads, s_q, s_k, scale, causal, s)
+  FLASH_DISPATCH_F32(bwd_dkv, q, k, v, dout, lse, delta, dk, dv, strides,
+                     batch, heads, s_q, s_k, scale, causal, s)
 }
 
-// Dynamic shared memory a block of the forward (kernel 0) or of either
-// backward kernel (1) takes at head dim d (ptxas -v does not count it).
+// Dynamic shared memory a block of the fp32 forward (kernel 0) or of dq
+// and the fp32 dk/dv (1) takes at head dim d (ptxas -v does not count it).
 int flash_attention_smem_bytes(int kernel, int d) {
   return kernel == 0 ? fwd_smem(d) : bwd_smem(d);
 }

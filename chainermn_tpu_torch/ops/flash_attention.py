@@ -9,9 +9,12 @@ The port of ``chainermn_tpu.ops.pallas_attention``'s training kernels:
 * :func:`flash_backward_dkv` (K4) replaces its dk/dv half
   (``_flash_bwd_dkv_kernel``, :747).
 
-On CUDA tensors each wrapper launches its hand-written Hopper kernel
-(``csrc/flash_attention.cu``, built by ``nvcc`` at first use) or raises;
-it never falls back.  On CPU tensors it runs its plain PyTorch version
+On CUDA tensors each wrapper launches its hand-written Hopper kernel,
+built by ``nvcc`` at first use, or raises; it never falls back.  bf16
+K2 and K4 run on the tensor cores (``csrc/flash_attention_sm90.cu``:
+``wgmma`` with P and dS split into bf16 hi + lo); their fp32 versions,
+and K3 in both types, on the CUDA cores (``csrc/flash_attention.cu``).
+On CPU tensors a wrapper runs its plain PyTorch version
 (``*_reference``), which is what the CPU tests hold against the JAX
 package.  Each wrapper counts its kernel launches in ``.launches`` (the
 CPU path does not count).
@@ -43,6 +46,7 @@ _NEG_INF = -1e30
 _HEAD_DIMS = (64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _LIB: Optional[ctypes.CDLL] = None
+_SM90_LIB: Optional[ctypes.CDLL] = None
 
 # The kernels against their plain versions on the same inputs.  Both
 # compute in fp32 and differ only in summation order: over at most
@@ -52,7 +56,10 @@ _LIB: Optional[ctypes.CDLL] = None
 # may straddle a rounding boundary: one bf16 ulp of the element, rtol
 # 2^-7.  Rounding P (or dS) to bf16 inside a kernel moves elements by
 # about 2^-9 of the output's typical size, at every element, and fails
-# this (the negative control in tests/test_torch_kernels_cuda.py).
+# this (the negative control in tests/test_torch_kernels_cuda.py).  The
+# tensor-core kernels therefore split P and dS into bf16 hi = bf16(x)
+# and lo = bf16(x - hi), about 2^-17 of each element, inside it
+# (tests/test_torch_flash_split.py).
 RTOL = {torch.bfloat16: 2.0 ** -7, torch.float32: 2.0 ** -20}
 ATOL_OF_SCALE = 2.0 ** -13
 
@@ -243,7 +250,8 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     q (b, s_q, h, d), k/v (b, s_k, h, d), bf16 or fp32 (d 64 or 128 on
     the card) -> out (b, s_q, h, d) in q's dtype and lse fp32
-    (b*h, s_q)."""
+    (b*h, s_q).  bf16 runs on the tensor cores, fp32 on the CUDA
+    cores."""
     if _on_cpu("flash_forward", q, k, v):
         return flash_forward_reference(q, k, v, causal, scale)
     _check_qkv(q, k, v)
@@ -256,7 +264,9 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return out, lse
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = _library().flash_attention_fwd(
+        fn = (_sm90_library().flash_attention_sm90_fwd
+              if q.dtype == torch.bfloat16 else _library().flash_attention_fwd)
+        err = fn(
             _DTYPE_CODE[q.dtype], d, q.data_ptr(), k.data_ptr(),
             v.data_ptr(), out.data_ptr(), lse.data_ptr(),
             _strides(q, k, v, out), b, h, s_q, k.shape[1], float(scale),
@@ -297,7 +307,7 @@ def flash_backward_dq(q, k, v, dout, lse, delta, causal: bool,
 def flash_backward_dkv(q, k, v, dout, lse, delta, causal: bool,
                        scale: float):
     """K4: ``(dk, dv)`` from the saved lse and delta, in k's and v's
-    dtype."""
+    dtype (bf16 on the tensor cores, fp32 on the CUDA cores)."""
     if _on_cpu("flash_backward_dkv", q, k, v, dout):
         return flash_backward_dkv_reference(q, k, v, dout, lse, delta,
                                             causal, scale)
@@ -313,7 +323,10 @@ def flash_backward_dkv(q, k, v, dout, lse, delta, causal: bool,
         return dk, dv
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = _library().flash_attention_bwd_dkv(
+        fn = (_sm90_library().flash_attention_sm90_bwd_dkv
+              if q.dtype == torch.bfloat16
+              else _library().flash_attention_bwd_dkv)
+        err = fn(
             _DTYPE_CODE[q.dtype], d, q.data_ptr(), k.data_ptr(),
             v.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), _strides(q, k, v, dout, dk, dv),
@@ -339,12 +352,42 @@ def _rows(name: str, t: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     return t.contiguous()
 
 
-def smem_bytes(kernel: str, d: int) -> int:
-    """Dynamic shared memory of one block of ``"forward"`` or
-    ``"backward"`` (dq and dk/dv alike) at head dim ``d``, as the CUDA
-    source computes it (builds the library)."""
+def smem_bytes(kernel: str, d: int, dtype=torch.float32) -> int:
+    """Dynamic shared memory of one block of ``kernel`` (a wrapper's
+    name) at head dim ``d`` and ``dtype``, as the CUDA source computes
+    it (builds the library)."""
+    if dtype == torch.bfloat16 and kernel in SM90_KERNELS:
+        return _sm90_library().flash_attention_sm90_smem_bytes(
+            SM90_KERNELS.index(kernel), d)
     return _library().flash_attention_smem_bytes(
-        {"forward": 0, "backward": 1}[kernel], d)
+        0 if kernel == "flash_forward" else 1, d)
+
+
+# The wrappers whose bf16 kernels are in csrc/flash_attention_sm90.cu.
+SM90_KERNELS = ("flash_forward", "flash_backward_dkv")
+
+
+def design(kernel: str, dtype, d: int) -> dict:
+    """How ``kernel`` (a wrapper's name) computes at ``dtype`` and head
+    dim ``d``: the unit and instruction of each product, the copy ring
+    and the shared memory of a block (builds the library)."""
+    if dtype != torch.bfloat16 or kernel not in SM90_KERNELS:
+        return {"source": "csrc/flash_attention.cu",
+                "products": "fp32 FMA on the CUDA cores",
+                "copies": "synchronous loads", "ring_stages": 1,
+                "smem_bytes": smem_bytes(kernel, d, dtype)}
+    rs = f"wgmma m64n{d}k16, A from registers split hi+lo (2 products)"
+    products = {
+        "flash_forward": {"Q.K^T": "wgmma m64n64k16, A and B from shared",
+                          "P.V": rs},
+        "flash_backward_dkv": {"K.Q^T": "wgmma m64n64k16, both shared",
+                               "V.dO^T": "wgmma m64n64k16, both shared",
+                               "P^T.dO": rs, "dS^T.Q": rs},
+    }[kernel]
+    return {"source": "csrc/flash_attention_sm90.cu", "products": products,
+            "copies": "cp.async 16-byte, 128-byte swizzle",
+            "ring_stages": _sm90_library().flash_attention_sm90_stages(),
+            "smem_bytes": smem_bytes(kernel, d, dtype)}
 
 
 def _library() -> ctypes.CDLL:
@@ -365,6 +408,26 @@ def _library() -> ctypes.CDLL:
         lib.flash_attention_error_string.restype = ctypes.c_char_p
         _LIB = lib
     return _LIB
+
+
+def _sm90_library() -> ctypes.CDLL:
+    global _SM90_LIB
+    if _SM90_LIB is None:
+        lib = _build.load("flash_attention_sm90")
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        tail = [i32] * 4 + [ctypes.c_float, i32, ptr]
+        lib.flash_attention_sm90_fwd.argtypes = [i32, i32] + [ptr] * 6 + tail
+        lib.flash_attention_sm90_bwd_dkv.argtypes = ([i32, i32] + [ptr] * 9
+                                                     + tail)
+        for fn in (lib.flash_attention_sm90_fwd,
+                   lib.flash_attention_sm90_bwd_dkv):
+            fn.restype = i32
+        lib.flash_attention_sm90_smem_bytes.argtypes = [i32, i32]
+        lib.flash_attention_sm90_smem_bytes.restype = i32
+        lib.flash_attention_sm90_stages.argtypes = []
+        lib.flash_attention_sm90_stages.restype = i32
+        _SM90_LIB = lib
+    return _SM90_LIB
 
 
 # ----------------------------------------------------------------------

@@ -27,14 +27,16 @@ Run from the repository root, with one card.  Phases:
    their plain versions at the training shape (bf16 and fp32), a ragged
    causal shape and a non-causal cross shape, timed at the training
    shape beside their plain versions, scaled_dot_product_attention and
-   their bounds;
+   their bounds, with each kernel's achieved TFLOP/s, share of its
+   bound, design (tensor-core or CUDA-core products, copy ring), shared
+   memory and registers;
 6. the training main path: the full-width TransformerLM trained on
    batch 8 x 2048 tokens through ``create_communicator`` ->
    ``bcast_data`` -> ``create_multi_node_optimizer(AdamW)`` ->
    ``build_train_step`` on a 1-rank NCCL group, the flash kernels'
    counts set to 0 just before the timed steps and read just after; a
-   ``torch.profiler`` step; flash vs dense attend on identical params
-   and batch;
+   ``torch.profiler`` step with the flash kernels' share of it; flash
+   vs dense attend on identical params and batch;
 7. the fused cast/scale kernel (K1) against its plain version, bit for
    bit, at every dtype pair, ragged sizes, an odd-offset view and each
    bucket of ResNet-50's wire plan, then timed at those buckets beside
@@ -59,6 +61,7 @@ kernels' JSON record and ``{"ok": true, "device": {...}}``.
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -501,14 +504,20 @@ def live_pairs(s_q, s_k, causal):
     return sum(min(i + 1, s_k) for i in range(s_q))
 
 
+def flash_ops(name, shape):
+    """The operations one launch's products need (the function's, not
+    the hi/lo split's)."""
+    b, s_q, s_k, h, d, causal = shape
+    return 2 * FLASH_PRODUCTS[name] * b * h * live_pairs(s_q, s_k, causal) * d
+
+
 def flash_bound(name, shape, dtype):
     """Least time for one launch: the operations its products need over
     the input type's peak, against each input read once and each output
     written once over HBM bandwidth."""
     b, s_q, s_k, h, d, causal = shape
     elt = torch.finfo(dtype).bits // 8
-    pairs = live_pairs(s_q, s_k, causal)
-    ops = 2 * FLASH_PRODUCTS[name] * b * h * pairs * d
+    ops = flash_ops(name, shape)
     rows_q, rows_k = {"flash_forward": (2, 2), "flash_backward_dq": (3, 2),
                       "flash_backward_dkv": (2, 4)}[name]
     row_bytes = {"flash_forward": 4, "flash_backward_dq": 8,
@@ -594,13 +603,21 @@ def flash_kernel_phase():
                     ms = event_ms(kernel[name], 10)
                     plain_ms = event_ms(plain[name], 3)
                     bound_ms, bound_by = flash_bound(name, shape, dtype)
+                    tflops = flash_ops(name, shape) / ms / 1e9
+                    design = fa.design(name, dtype, shape[4])
+                    design.update(PTXAS.get(
+                        (name, "f32" if dtype == torch.float32 else "bf16",
+                         shape[4]), {}))
                     rec.setdefault(dtype, {})[name] = dict(
                         max_abs_err=err, share_of_tolerance=used, ms=ms,
                         plain_ms=plain_ms, bound_ms=bound_ms,
-                        bound_by=bound_by, library_ms=None)
+                        bound_by=bound_by, library_ms=None,
+                        tflops=tflops, share_of_bound=bound_ms / ms,
+                        design=design)
                     line += (f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms,"
                              f" bound {bound_ms:.4f} ms ({bound_by}), "
-                             f"{bound_ms / ms:.1%} of bound")
+                             f"{bound_ms / ms:.1%} of bound, {tflops:.1f} "
+                             f"TFLOP/s; design {json.dumps(design)}")
                 log(line)
                 del refs, outs
             if main and dtype == torch.bfloat16:
@@ -761,10 +778,24 @@ def train_phase():
             f"n_layers x steps ({N_LAYERS} x {TRAIN_STEPS})")
 
         busy, wall, n_kernels, kernels = profile_train_step(step, tokens)
+        attn = {}
+        for e in kernels:
+            m = re.search(r"(flash_[a-z_]+?(?:_sm90)?)_kernel", e.key)
+            if m:
+                attn[m[1]] = (attn.get(m[1], 0.0)
+                              + e.self_device_time_total / 1e3)
+        attn_ms = sum(attn.values())
+        # the bf16 step runs K2 and K4 on the tensor cores, K3 on the CUDA
+        # cores, and nothing else of the flash kernels
+        check(sorted(attn) == ["flash_bwd_dkv_sm90", "flash_bwd_dq",
+                               "flash_fwd_sm90"],
+              f"flash kernels in the profiled step: {sorted(attn)}")
         log(f"profile train step: device busy {busy:.3f} ms in {n_kernels} "
             f"kernel launches over the profiled step's {wall:.3f} ms (host "
             f"clock; unprofiled mean {mean_ms:.3f} ms); idle share "
-            f"{1 - busy / wall:.1%}")
+            f"{1 - busy / wall:.1%}; flash attention kernels "
+            f"{attn_ms:.3f} ms ({attn_ms / busy:.1%} of device time): "
+            + ", ".join(f"{k} {v:.3f} ms" for k, v in sorted(attn.items())))
         for e in kernels[:10]:
             log(f"  {e.self_device_time_total / 1e3:9.3f} ms x{e.count:<4d} "
                 f"{e.key[:90]}")
@@ -781,7 +812,8 @@ def train_phase():
                 "losses": losses, "step_ms": step_ms,
                 "tokens_per_s": tps, "peak_gib": peak / 2**30,
                 "device_busy_ms": busy, "profiled_step_ms": wall,
-                "idle_share": 1 - busy / wall, "loss_gap": loss_gap,
+                "idle_share": 1 - busy / wall, "attention_ms": attn_ms,
+                "attention_share": attn_ms / busy, "loss_gap": loss_gap,
                 "grad_norm_gap": grad_gap}
     finally:
         dist.destroy_process_group()
@@ -1154,10 +1186,10 @@ def build_all():
     """Every kernel source built from the checkout, in parallel (one
     nvcc each); prints build time, registers, shared memory and spills
     per kernel."""
-    import re
     from concurrent.futures import ThreadPoolExecutor
 
-    names = ("flash_decode", "flash_attention", "fused_cast_scale")
+    names = ("flash_decode", "flash_attention", "flash_attention_sm90",
+             "fused_cast_scale")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
         texts = dict(zip(names, pool.map(_build.build, names)))
@@ -1171,23 +1203,51 @@ def build_all():
                 kernel = kernel_name(m.group(1))
             elif "registers" in line or "spill" in line:
                 log(f"  {name} {kernel}: {line.strip()}")
-    log("  flash_attention dynamic shared memory a block: " + ", ".join(
-        f"{k} d{d} {fa.smem_bytes(k, d)} bytes"
-        for k in ("forward", "backward") for d in (64, 128)))
+                k = re.fullmatch(r"(flash_\w+_kernel)<(\w+),(\d+)>",
+                                 kernel or "")
+                if k and k[1] in FLASH_KERNEL_OF:
+                    key = (FLASH_KERNEL_OF[k[1]], k[2], int(k[3]))
+                    for field, pat in (("registers", r"Used (\d+) registers"),
+                                       ("spill_stores",
+                                        r"(\d+) bytes spill stores")):
+                        v = re.search(pat, line)
+                        if v:
+                            PTXAS.setdefault(key, {})[field] = int(v[1])
+    log("  flash attention dynamic shared memory a block: " + ", ".join(
+        f"{k} {str(dt).split('.')[-1]} d{d} {fa.smem_bytes(k, d, dt)} bytes"
+        for k in FLASH_KERNELS for dt in (torch.bfloat16, torch.float32)
+        for d in (64, 128)))
+
+
+# ptxas registers a thread and spill stores of the flash kernels, by
+# (wrapper, "bf16" or "f32", d), from build_all
+PTXAS = {}
+FLASH_KERNEL_OF = {
+    "flash_fwd_kernel": "flash_forward",
+    "flash_fwd_sm90_kernel": "flash_forward",
+    "flash_bwd_dq_kernel": "flash_backward_dq",
+    "flash_bwd_dkv_kernel": "flash_backward_dkv",
+    "flash_bwd_dkv_sm90_kernel": "flash_backward_dkv",
+}
 
 
 # type names in the kernels' mangled names
 MANGLED_TYPES = {"f": "f32", "13__nv_bfloat16": "bf16", "6__half": "f16"}
+# the type of the flash kernels that are templates on d alone
+FLASH_ENTRY_TYPES = {"flash_fwd_kernel": "f32", "flash_bwd_dkv_kernel": "f32",
+                     "flash_fwd_sm90_kernel": "bf16",
+                     "flash_bwd_dkv_sm90_kernel": "bf16"}
 
 
 def kernel_name(mangled):
-    """A kernel's template instance from its mangled name."""
-    import re
-
+    """A kernel's template instance from its mangled name, as
+    ``name<type,...>``."""
     types = "|".join(MANGLED_TYPES)
-    k = re.search(rf"(flash_[a-z_]+_kernel)I({types})Li(\d+)E", mangled)
+    k = re.search(
+        rf"(flash_[a-z_]+?(?:_sm90)?_kernel)I(?:({types}))?Li(\d+)E", mangled)
     if k:
-        return f"{k.group(1)}<{MANGLED_TYPES[k.group(2)]},{k.group(3)}>"
+        t = MANGLED_TYPES[k[2]] if k[2] else FLASH_ENTRY_TYPES[k[1]]
+        return f"{k[1]}<{t},{k[3]}>"
     k = re.search(rf"(fused_cast_scale_kernel)I({types})({types}|S1_)Li(\d+)E",
                   mangled)
     if k:
@@ -1258,10 +1318,14 @@ def main():
         serve_path["launches"], kern[torch.bfloat16], "bfloat16")]
     records[0]["tolerance"] = TOLERANCE[torch.bfloat16]
     for name in FLASH_KERNELS:
+        r = flash[torch.bfloat16][name]
         records.append(kernel_record(
-            name, "chainermn_tpu_torch/ops/csrc/flash_attention.cu",
-            FLASH_REPLACES[name], train_path["launches"][name],
-            flash[torch.bfloat16][name], "bfloat16"))
+            name, "chainermn_tpu_torch/ops/" + r["design"]["source"],
+            FLASH_REPLACES[name], train_path["launches"][name], r,
+            "bfloat16"))
+        records[-1].update(tflops=r["tflops"],
+                           share_of_bound=r["share_of_bound"],
+                           design=r["design"])
     # K1: means per launch over one ResNet-50 step's 2 x buckets launches
     records.append(kernel_record(
         "fused_cast_scale", "chainermn_tpu_torch/ops/csrc/fused_cast_scale.cu",

@@ -120,7 +120,9 @@ def test_flash_attention_kernels_match_plain_versions(dtype, shape):
     """K2, K3 and K4 against their plain versions on the same inputs
     (the backward kernels get the plain forward's lse and delta), with
     ``flash_attention.tolerance``: 2^-13 of the output's scale for the
-    fp32 summation order, plus one bf16 ulp of each element in bf16."""
+    fp32 summation order, plus one bf16 ulp of each element in bf16.
+    In bf16, K2 and K4 are the tensor-core kernels, whose P and dS are
+    split into bf16 hi + lo."""
     _need_card()
     from chainermn_tpu_torch.ops import flash_attention as fa
 
@@ -150,6 +152,105 @@ def test_flash_attention_kernels_match_plain_versions(dtype, shape):
         torch.testing.assert_close(got, ref, **fa.tolerance(ref))
     assert (fa.flash_forward.launches, fa.flash_backward_dq.launches,
             fa.flash_backward_dkv.launches) == tuple(n + 1 for n in n0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 1, 70, 2, 64, False),
+                                   (1, 63, 65, 2, 128, True),
+                                   (2, 130, 70, 2, 64, True),
+                                   (1, 100, 300, 2, 128, True),
+                                   (1, 65, 129, 3, 128, False)],
+                         ids=lambda s: "x".join(map(str, s[:5]))
+                         + ("c" if s[5] else "n"))
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_flash_attention_kernels_on_small_shapes(dtype, shape):
+    """The edges of the tile loops: one query over two k tiles, a
+    single partial tile, causal with s_k < s_q (keys past the last
+    query) and s_k > s_q (k tiles no query sees, whose dk and dv are
+    zero), odd head counts.  (One query over one causal key is no case:
+    there P = 1 and dS = dP - delta = 0, so dk and dq are fp32
+    cancellation noise that no tolerance of the output's scale can
+    hold.)"""
+    _need_card()
+    from chainermn_tpu_torch.ops import flash_attention as fa
+
+    causal = shape[5]
+    q, k, v, do = _flash_inputs(shape, getattr(torch, dtype), seed=7)
+    scale = q.shape[-1] ** -0.5
+    b, s_q, h, _ = q.shape
+    ref_out, ref_lse = fa.flash_forward_reference(q, k, v, causal, scale)
+    out, lse = fa.flash_forward(q, k, v, causal, scale)
+    delta = ((do.float() * ref_out.float()).sum(-1).transpose(1, 2)
+             .reshape(b * h, s_q).contiguous())
+    args = (q, k, v, do, ref_lse, delta, causal, scale)
+    ref_dk, ref_dv = fa.flash_backward_dkv_reference(*args)
+    dk, dv = fa.flash_backward_dkv(*args)
+    dq = fa.flash_backward_dq(*args)
+    torch.cuda.synchronize()
+    for got, ref in ((out, ref_out), (lse, ref_lse), (dk, ref_dk),
+                     (dv, ref_dv),
+                     (dq, fa.flash_backward_dq_reference(*args))):
+        torch.testing.assert_close(got, ref, **fa.tolerance(ref))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_flash_attention_kernels_on_strided_views(dtype, d):
+    """K2, K3 and K4 on q, k, v (and dO) that are non-contiguous
+    (b, s, h, d) views, slices of one fused (b, s, 3, h, d) tensor as a
+    fused QKV projection gives them: the kernels read through the
+    strides (no copy) and match their plain versions on contiguous
+    copies, under the same ``tolerance``."""
+    _need_card()
+    from chainermn_tpu_torch.ops import flash_attention as fa
+
+    dt = getattr(torch, dtype)
+    b, s, h, causal = 2, 1000, 4, True
+    g = torch.Generator(device="cuda").manual_seed(d)
+    qkv = torch.randn(b, s, 3, h, d, generator=g, device="cuda").to(dt)
+    do_qkv = torch.randn(b, s, 3, h, d, generator=g, device="cuda").to(dt)
+    q, k, v = qkv.unbind(2)
+    do = do_qkv[:, :, 1]
+    assert not q.is_contiguous() and q.stride(1) == 3 * h * d
+    assert fa._kernel_operand("q", q, dt, q.device) is q  # read in place
+    scale = d ** -0.5
+    qc, kc, vc, doc = (t.contiguous() for t in (q, k, v, do))
+    ref_out, ref_lse = fa.flash_forward_reference(qc, kc, vc, causal, scale)
+    out, lse = fa.flash_forward(q, k, v, causal, scale)
+    torch.testing.assert_close(out, ref_out, **fa.tolerance(ref_out))
+    torch.testing.assert_close(lse, ref_lse, **fa.tolerance(ref_lse))
+    delta = ((doc.float() * ref_out.float()).sum(-1).transpose(1, 2)
+             .reshape(b * h, s).contiguous())
+    args = (ref_lse, delta, causal, scale)
+    ref_dq = fa.flash_backward_dq_reference(qc, kc, vc, doc, *args)
+    ref_dk, ref_dv = fa.flash_backward_dkv_reference(qc, kc, vc, doc, *args)
+    dq = fa.flash_backward_dq(q, k, v, do, *args)
+    dk, dv = fa.flash_backward_dkv(q, k, v, do, *args)
+    torch.cuda.synchronize()
+    for got, ref in ((dq, ref_dq), (dk, ref_dk), (dv, ref_dv)):
+        torch.testing.assert_close(got, ref, **fa.tolerance(ref))
+
+
+@pytest.mark.cuda
+def test_flash_tensor_core_kernels_deterministic():
+    """The bf16 K2 and K4 own their output tiles (no atomics): two runs
+    on the same inputs agree bit for bit."""
+    _need_card()
+    from chainermn_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, do = _flash_inputs(FLASH_SHAPES[1], torch.bfloat16, seed=3)
+    scale = q.shape[-1] ** -0.5
+    out, lse = fa.flash_forward(q, k, v, True, scale)
+    b, s_q, h, _ = q.shape
+    delta = ((do.float() * out.float()).sum(-1).transpose(1, 2)
+             .reshape(b * h, s_q).contiguous())
+    dk, dv = fa.flash_backward_dkv(q, k, v, do, lse, delta, True, scale)
+    out2, lse2 = fa.flash_forward(q, k, v, True, scale)
+    dk2, dv2 = fa.flash_backward_dkv(q, k, v, do, lse, delta, True, scale)
+    torch.cuda.synchronize()
+    for a, b2 in ((out, out2), (lse, lse2), (dk, dk2), (dv, dv2)):
+        assert torch.equal(a, b2)
 
 
 @pytest.mark.cuda

@@ -1,15 +1,15 @@
 // Flash attention for training on Hopper's CUDA cores, sm_90a: the fp32
-// forward (K2) and dk/dv (K4), and dq (K3) in fp32 and bf16.  The bf16 K2
-// and K4 run on the tensor cores, in flash_attention_sm90.cu; fp32 stays
-// here because a tensor-core product in fp32 means TF32 (10 bits of
-// mantissa), which fails the fp32 tolerance (rtol 2^-20).
+// forward (K2), dq (K3) and dk/dv (K4).  The bf16 kernels run on the
+// tensor cores, in flash_attention_sm90.cu; fp32 stays here because a
+// tensor-core product in fp32 means TF32 (10 bits of mantissa), which
+// fails the fp32 tolerance (rtol 2^-20).
 //
-// Replaces the TPU kernels of chainermn_tpu/ops/pallas_attention.py:
+// Replaces the TPU kernels of chainermn_tpu/ops/pallas_attention.py, in
+// fp32:
 //   flash_fwd      <- `_flash_fwd_kernel` (:367, launched by `_flash_forward`
-//                     at :503), fp32
+//                     at :503)
 //   flash_bwd_dq   <- `_flash_bwd_dq_kernel` (:619, `_flash_backward` :878)
-//   flash_bwd_dkv  <- `_flash_bwd_dkv_kernel` (:747, `_flash_backward` :895),
-//                     fp32
+//   flash_bwd_dkv  <- `_flash_bwd_dkv_kernel` (:747, `_flash_backward` :895)
 // They compute the same functions, not the same blocks.  q, k, v, out and
 // the gradients are (batch, seq, heads, d), indexed through the strides the
 // wrapper passes (the last dim contiguous): no (b*h, s, d) copy and no
@@ -22,9 +22,10 @@
 // P = exp(q.k * scale - lse), zeroed where masked (k >= s_k, q >= s_q, or
 // above the causal diagonal k > q), and dS = P * (dP - delta).
 //
-// What bounds them: operations.  At the training shape (s 2048, d 128) each
-// 64x64 tile pair does 2 * 64 * 64 * 128 flops per product over 32 KB of
-// bf16 K/V, far above the ~295 flop/byte where an H100 turns compute-bound.
+// What bounds them: operations.  At the training shape (s 2048, d 128,
+// causal) each function does about s / 8 = 256 flops (forward) to 3 s / 20
+// (dq) per byte of its fp32 inputs and outputs, far above the ~20
+// flop/byte where an H100 turns compute-bound at its 67 TFLOP/s fp32 rate.
 //
 // Design (simple and right first):
 // * one thread block of 256 threads per (batch*head, 64-row tile): a q tile
@@ -41,14 +42,12 @@
 //   warp shuffles; P (or dS) goes through shared memory for the next product;
 // * dq and dk/dv are separate kernels that each own their output tile, so
 //   there are no atomics and the results are deterministic.
-// Later work, not done here: dq on the tensor cores with dS split into bf16
-// hi + lo as flash_attention_sm90.cu does, and cp.async double buffering.
+// Later work, not done here: cp.async double buffering.
 //
 // Plain C interface, bound through ctypes: each entry launches on the given
 // stream, allocates nothing, and returns cudaGetLastError() (0 on success).
-// dtype 0 is float32, 1 is bfloat16 (dq only); d is 64 or 128.
+// dtype must be 0 (float32); d is 64 or 128.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -71,38 +70,21 @@ __device__ __forceinline__ void load8(const float* __restrict__ p,
   v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
 }
 
-__device__ __forceinline__ void load8(const __nv_bfloat16* __restrict__ p,
-                                      float (&v)[8]) {
-  const uint4 raw = __ldg(reinterpret_cast<const uint4*>(p));
-  const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 8; ++i) v[i] = __bfloat162float(e[i]);
-}
-
 __device__ __forceinline__ void store4(float* p, float a, float b, float c,
                                        float d) {
   *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
 }
 
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float a, float b,
-                                       float c, float d) {
-  const __nv_bfloat162 lo = __floats2bfloat162_rn(a, b);
-  const __nv_bfloat162 hi = __floats2bfloat162_rn(c, d);
-  uint2 u;
-  u.x = *reinterpret_cast<const unsigned int*>(&lo);
-  u.y = *reinterpret_cast<const unsigned int*>(&hi);
-  *reinterpret_cast<uint2*>(p) = u;
-}
-
 // Rows [row0, row0 + 64) of head `head` of batch `batch` into dst[64][D+4]
 // as fp32 times `mul`; rows at or past `n` become zeros.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src,
+template <int D>
+__device__ __forceinline__ void load_tile(float* dst,
+                                          const float* __restrict__ src,
                                           Strides st, int batch, int head,
                                           int row0, int n, float mul) {
   constexpr int kLd = D + kPad;
   constexpr int kPerRow = D / 8;
-  const T* base = src + batch * st.b + head * st.h;
+  const float* base = src + batch * st.b + head * st.h;
   for (int c = threadIdx.x; c < kTile * kPerRow; c += kThreads) {
     const int r = c / kPerRow;
     const int col = (c % kPerRow) * 8;
@@ -207,14 +189,14 @@ __device__ __forceinline__ float row_sum(float x) {
 
 // Store rows ty + 16i of a 64 x D accumulator tile (times `mul`) into rows
 // [row0, row0 + 64) of `dst`, skipping rows at or past `n`.
-template <typename T, int D>
-__device__ __forceinline__ void store_tile(T* dst, Strides st, int batch,
+template <int D>
+__device__ __forceinline__ void store_tile(float* dst, Strides st, int batch,
                                            int head, int row0, int n,
                                            const float (&acc)[4][D / 16],
                                            float mul) {
   const int ty = threadIdx.x / 16;
   const int tx = threadIdx.x % 16;
-  T* base = dst + batch * st.b + head * st.h;
+  float* base = dst + batch * st.b + head * st.h;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = row0 + ty + 16 * i;
@@ -249,7 +231,7 @@ __global__ void __launch_bounds__(kThreads)
   const int batch = bh / heads;
   const int head = bh % heads;
 
-  load_tile<float, D>(sQ, q, sq, batch, head, first_q, s_q, scale);
+  load_tile<D>(sQ, q, sq, batch, head, first_q, s_q, scale);
   int n_k = (s_k + kTile - 1) / kTile;
   if (causal) n_k = min(n_k, (first_q + kTile - 1) / kTile + 1);
 
@@ -265,8 +247,8 @@ __global__ void __launch_bounds__(kThreads)
   for (int kt = 0; kt < n_k; ++kt) {
     const int first_k = kt * kTile;
     __syncthreads();  // the previous tile's readers are done
-    load_tile<float, D>(sK, k, sk, batch, head, first_k, s_k, 1.f);
-    load_tile<float, D>(sV, v, sv, batch, head, first_k, s_k, 1.f);
+    load_tile<D>(sK, k, sk, batch, head, first_k, s_k, 1.f);
+    load_tile<D>(sV, v, sv, batch, head, first_k, s_k, 1.f);
     __syncthreads();
     float s[4][4];
     mm_nt<D>(sQ, sK, s);
@@ -313,7 +295,7 @@ __global__ void __launch_bounds__(kThreads)
     if (tx == 0 && r < s_q)
       lse[static_cast<long long>(bh) * s_q + r] = m[i] + logf(den);
   }
-  store_tile<float, D>(out, so, batch, head, first_q, s_q, acc, 1.f);
+  store_tile<D>(out, so, batch, head, first_q, s_q, acc, 1.f);
 }
 
 // Stage the saved lse and delta of rows [row0, row0 + 64) (0 past s_q).
@@ -329,13 +311,16 @@ __device__ __forceinline__ void load_rows(float* s_lse, float* s_delta,
   }
 }
 
-// dq: one block per (q tile, batch*head), sweeping the live k tiles.
-template <typename T, int D>
+// fp32 dq: one block per (q tile, batch*head), sweeping the live k tiles.
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-    flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v, const T* __restrict__ dout,
+    flash_bwd_dq_kernel(const float* __restrict__ q,
+                        const float* __restrict__ k,
+                        const float* __restrict__ v,
+                        const float* __restrict__ dout,
                         const float* __restrict__ lse,
-                        const float* __restrict__ delta, T* __restrict__ dq,
+                        const float* __restrict__ delta,
+                        float* __restrict__ dq,
                         Strides sq, Strides sk, Strides sv, Strides sdo,
                         Strides sdq, int heads, int s_q, int s_k, float scale,
                         int causal) {
@@ -356,8 +341,8 @@ __global__ void __launch_bounds__(kThreads)
   const int batch = bh / heads;
   const int head = bh % heads;
 
-  load_tile<T, D>(sQ, q, sq, batch, head, first_q, s_q, 1.f);
-  load_tile<T, D>(sdO, dout, sdo, batch, head, first_q, s_q, 1.f);
+  load_tile<D>(sQ, q, sq, batch, head, first_q, s_q, 1.f);
+  load_tile<D>(sdO, dout, sdo, batch, head, first_q, s_q, 1.f);
   load_rows(s_lse, s_delta, lse, delta, bh, first_q, s_q);
   int n_k = (s_k + kTile - 1) / kTile;
   if (causal) n_k = min(n_k, (first_q + kTile - 1) / kTile + 1);
@@ -371,8 +356,8 @@ __global__ void __launch_bounds__(kThreads)
   for (int kt = 0; kt < n_k; ++kt) {
     const int first_k = kt * kTile;
     __syncthreads();
-    load_tile<T, D>(sK, k, sk, batch, head, first_k, s_k, 1.f);
-    load_tile<T, D>(sV, v, sv, batch, head, first_k, s_k, 1.f);
+    load_tile<D>(sK, k, sk, batch, head, first_k, s_k, 1.f);
+    load_tile<D>(sV, v, sv, batch, head, first_k, s_k, 1.f);
     __syncthreads();
     float s[4][4], dp[4][4];
     mm_nt<D>(sQ, sK, s);
@@ -395,7 +380,7 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
     mm_acc<D>(sS, sK, acc);
   }
-  store_tile<T, D>(dq, sdq, batch, head, first_q, s_q, acc, scale);
+  store_tile<D>(dq, sdq, batch, head, first_q, s_q, acc, scale);
 }
 
 // fp32 dk/dv: one block per (k tile, batch*head), sweeping the live q
@@ -429,8 +414,8 @@ __global__ void __launch_bounds__(kThreads)
   const int batch = bh / heads;
   const int head = bh % heads;
 
-  load_tile<float, D>(sK, k, sk, batch, head, first_k, s_k, 1.f);
-  load_tile<float, D>(sV, v, sv, batch, head, first_k, s_k, 1.f);
+  load_tile<D>(sK, k, sk, batch, head, first_k, s_k, 1.f);
+  load_tile<D>(sV, v, sv, batch, head, first_k, s_k, 1.f);
   const int n_q = (s_q + kTile - 1) / kTile;
   // first q tile with a row at or below the diagonal (equal tile sizes)
   const int q0 = causal ? first_k / kTile : 0;
@@ -447,8 +432,8 @@ __global__ void __launch_bounds__(kThreads)
   for (int qt = q0; qt < n_q; ++qt) {
     const int first_q = qt * kTile;
     __syncthreads();
-    load_tile<float, D>(sQ, q, sq, batch, head, first_q, s_q, 1.f);
-    load_tile<float, D>(sdO, dout, sdo, batch, head, first_q, s_q, 1.f);
+    load_tile<D>(sQ, q, sq, batch, head, first_q, s_q, 1.f);
+    load_tile<D>(sdO, dout, sdo, batch, head, first_q, s_q, 1.f);
     load_rows(s_lse, s_delta, lse, delta, bh, first_q, s_q);
     __syncthreads();
     float st[4][4], dpt[4][4];
@@ -481,8 +466,8 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
     mm_acc<D>(sS, sQ, dk_acc);  // dk += dS^T q
   }
-  store_tile<float, D>(dk, sdk, batch, head, first_k, s_k, dk_acc, scale);
-  store_tile<float, D>(dv, sdv, batch, head, first_k, s_k, dv_acc, 1.f);
+  store_tile<D>(dk, sdk, batch, head, first_k, s_k, dk_acc, scale);
+  store_tile<D>(dv, sdv, batch, head, first_k, s_k, dv_acc, 1.f);
 }
 
 constexpr int fwd_smem(int d) {
@@ -517,19 +502,19 @@ int fwd(const void* q, const void* k, const void* v, void* out, void* lse,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int D>
+template <int D>
 int bwd_dq(const void* q, const void* k, const void* v, const void* dout,
            const void* lse, const void* delta, void* dq, const long long* st,
            int batch, int heads, int s_q, int s_k, float scale, int causal,
            cudaStream_t stream) {
-  auto kernel = flash_bwd_dq_kernel<T, D>;
+  auto kernel = flash_bwd_dq_kernel<D>;
   if (int err = set_smem(kernel, bwd_smem(D))) return err;
   const dim3 grid((s_q + kTile - 1) / kTile, batch * heads);
   kernel<<<grid, kThreads, bwd_smem(D), stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dq), strides_at(st, 0), strides_at(st, 1),
+      static_cast<float*>(dq), strides_at(st, 0), strides_at(st, 1),
       strides_at(st, 2), strides_at(st, 3), strides_at(st, 4), heads, s_q,
       s_k, scale, causal);
   return static_cast<int>(cudaGetLastError());
@@ -553,17 +538,7 @@ int bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Dispatch on (dtype, d): 0 = float32, 1 = bfloat16; d 64 or 128.
-#define FLASH_DISPATCH(FN, ...)                                   \
-  switch (dtype * 1000 + d) {                                     \
-    case 64: return FN<float, 64>(__VA_ARGS__);                   \
-    case 128: return FN<float, 128>(__VA_ARGS__);                 \
-    case 1064: return FN<__nv_bfloat16, 64>(__VA_ARGS__);         \
-    case 1128: return FN<__nv_bfloat16, 128>(__VA_ARGS__);        \
-    default: return static_cast<int>(cudaErrorInvalidValue);      \
-  }
-
-// fp32 only (dtype 0): bf16 K2 and K4 are in flash_attention_sm90.cu.
+// fp32 only (dtype 0): the bf16 kernels are in flash_attention_sm90.cu.
 #define FLASH_DISPATCH_F32(FN, ...)                               \
   switch (dtype * 1000 + d) {                                     \
     case 64: return FN<64>(__VA_ARGS__);                          \
@@ -594,8 +569,8 @@ int flash_attention_bwd_dq(int dtype, int d, const void* q, const void* k,
                            int s_q, int s_k, float scale, int causal,
                            void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  FLASH_DISPATCH(bwd_dq, q, k, v, dout, lse, delta, dq, strides, batch,
-                 heads, s_q, s_k, scale, causal, s)
+  FLASH_DISPATCH_F32(bwd_dq, q, k, v, dout, lse, delta, dq, strides, batch,
+                     heads, s_q, s_k, scale, causal, s)
 }
 
 // strides: 6 x (b, s, h) for q, k, v, dout, dk, dv.
@@ -610,8 +585,8 @@ int flash_attention_bwd_dkv(int dtype, int d, const void* q, const void* k,
                      batch, heads, s_q, s_k, scale, causal, s)
 }
 
-// Dynamic shared memory a block of the fp32 forward (kernel 0) or of dq
-// and the fp32 dk/dv (1) takes at head dim d (ptxas -v does not count it).
+// Dynamic shared memory a block of the forward (kernel 0) or of dq and
+// dk/dv (1) takes at head dim d (ptxas -v does not count it).
 int flash_attention_smem_bytes(int kernel, int d) {
   return kernel == 0 ? fwd_smem(d) : bwd_smem(d);
 }

@@ -1,11 +1,13 @@
 // Flash attention for training on Hopper's tensor cores, sm_90a: the bf16
-// forward (K2) and the bf16 dk/dv half of the FlashAttention-2 backward
-// (K4).  The fp32 instantiations of both, and dq (K3) in both types, stay
-// on the CUDA cores in flash_attention.cu.
+// forward (K2) and both halves of the bf16 FlashAttention-2 backward, dq
+// (K3) and dk/dv (K4).  Their fp32 versions stay on the CUDA cores in
+// flash_attention.cu.
 //
 // Replaces the TPU kernels of chainermn_tpu/ops/pallas_attention.py:
 //   flash_fwd_sm90      <- `_flash_fwd_kernel` (:367, launched by
 //                          `_flash_forward` at :503)
+//   flash_bwd_dq_sm90   <- `_flash_bwd_dq_kernel` (:619, `_flash_backward`
+//                          :878)
 //   flash_bwd_dkv_sm90  <- `_flash_bwd_dkv_kernel` (:747, `_flash_backward`
 //                          :895)
 // with the C interface of flash_attention.cu: q, k, v, out and the
@@ -16,62 +18,67 @@
 // What bounds them: operations.  At the training shape (b 8, s 2048, h 8,
 // d 128, causal) the forward's two products need 0.0695 ms at the bf16
 // dense peak (989 TFLOP/s) against 0.04 ms to move q, k, v and out once
-// through HBM; the dk/dv kernel's four products 0.139 ms against 0.06 ms
-// for its six tensors.
+// through HBM; dq's three products 0.104 ms against 0.05 ms for its five
+// tensors; the dk/dv kernel's four products 0.139 ms against 0.06 ms for
+// its six tensors.
 //
 // Numerics: the TPU kernels compute P and dS in fp32, and the port is held
 // to that (ops/flash_attention.py `tolerance`: 2^-13 of the output's scale,
 // one bf16 ulp of each element); a P rounded once to bf16 (2^-9 relative)
 // fails it (tests/test_torch_kernels_cuda.py, the negative control).  So
-// the two products whose left operand is fp32 split it: hi = bf16(x),
+// the products whose left operand is fp32 split it: hi = bf16(x),
 // lo = bf16(x - hi), and X.B = hi.B + lo.B, two bf16 tensor-core products
 // accumulated in fp32.  hi + lo carries 16 bits of mantissa, an error near
 // 2^-17 of each element; the cost is 1.5x the products of a single-bf16
 // kernel (tests/test_torch_flash_split.py emulates the split on the CPU and
-// shows it inside the tolerance where single bf16 is not).  q, k, v and dO
-// are bf16 already, so Q.K^T and dO.V^T are exact bf16 products.  Scores,
-// the softmax, P, dP, dS and every accumulator are fp32; masked scores are
-// -1e30; the forward finalizes with max(l, 1e-30).  Unlike
-// flash_attention.cu, q is not pre-scaled: the scale multiplies the fp32
-// scores, which moves the rounding only at the fp32 level.
+// shows O, dQ, dK and dV inside the tolerance where single bf16 is not).
+// q, k, v and dO are bf16 already, so Q.K^T and dO.V^T are exact bf16
+// products.  Scores, the softmax, P, dP, dS and every accumulator are fp32;
+// masked scores are -1e30; the forward finalizes with max(l, 1e-30).
+// Unlike flash_attention.cu, q is not pre-scaled: the scale multiplies the
+// fp32 scores, which moves the rounding only at the fp32 level.
 //
 // Design:
 // * one warpgroup (128 threads) per (64-row tile, batch*head): a q tile
-//   for the forward, a k tile for dk/dv; the TPU's sequential grid axis is
-//   a loop over the other side's 64-row tiles.  Causal loops stop at the
-//   diagonal (forward) or start from it (dk/dv), so dead tiles are never
-//   loaded; the forward launches its q tiles last-first, the longest
-//   causal loops first; ragged tails are masked by bounds.  dk and dv each
-//   have one owner block: no atomics, deterministic results;
+//   for the forward and dq, a k tile for dk/dv; the TPU's sequential grid
+//   axis is a loop over the other side's 64-row tiles.  Causal loops stop
+//   at the diagonal (forward, dq) or start from it (dk/dv), so dead tiles
+//   are never loaded; the forward and dq launch their q tiles last-first,
+//   the longest causal loops first; ragged tails are masked by bounds.
+//   dq, dk and dv each have one owner block: no atomics, deterministic
+//   results;
 // * products are `wgmma.mma_async` m64nNk16, bf16 in, fp32 accumulate.
 //   Forward: S = Q.K^T with Q and K from shared memory (N = 64 keys), then
-//   O += P_hi.V + P_lo.V with P from registers (N = d).  dk/dv: S^T = K.Q^T
-//   and dP^T = V.dO^T from shared memory, then dV += P^T_hi.dO +
-//   P^T_lo.dO and dK += dS^T_hi.Q + dS^T_lo.Q with P^T and dS^T from
+//   O += P_hi.V + P_lo.V with P from registers (N = d).  dq: S = Q.K^T and
+//   dP = dO.V^T from shared memory, then dQ += dS_hi.K + dS_lo.K with dS
+//   from registers (the forward's P.V with K in V's place).  dk/dv:
+//   S^T = K.Q^T and dP^T = V.dO^T from shared memory, then dV += P^T_hi.dO
+//   + P^T_lo.dO and dK += dS^T_hi.Q + dS^T_lo.Q with P^T and dS^T from
 //   registers.  An m64n64 accumulator holds, per thread, exactly the
-//   elements of the m64k16 A fragments of the next product, so P (and
+//   elements of the m64k16 A fragments of the next product, so P (and dS,
 //   P^T, dS^T) go from the softmax to the tensor cores without shared
 //   memory; the online softmax reduces a row over the 4 lanes that share
-//   it;
+//   it; dq's lse and delta rows (a thread's two rows) sit in registers;
 // * tiles are bf16 in shared memory in the 128-byte swizzle the wgmma
 //   descriptors name: each 64-column slab of a 64-row tile is 64 rows of
 //   128 bytes, 16-byte chunk c of row r stored at chunk c ^ (r % 8).  The
 //   same layout serves as a K-major operand (Q, K, V, dO on the left of a
-//   transposed product) and as an MN-major one (V, dO, Q as the right
-//   operand of a P-product);
+//   transposed product) and as an MN-major one (V, K, dO, Q as the right
+//   operand of a P- or dS-product);
 // * 16-byte cp.async copies (zero-filled past the sequence) fill a ring of
-//   kStages = 2 stages: K/V tiles for the forward, Q/dO tiles with their
-//   lse and delta rows for dk/dv.  The next tile's copies are in flight
-//   while this tile's products run;
-// * shared memory: forward 16 KB Q + 2 x 32 KB K/V at d 128 (81 KB with
-//   the alignment slack), dk/dv 32 KB resident K/V + 2 x 32 KB Q/dO + rows
-//   (98 KB): two blocks share an SM.  Registers: the dk/dv kernel holds
-//   the dK and dV accumulators (d/2 + d/2 fp32 a thread) beside S^T and
-//   dP^T (32 + 32); ptxas -v reports the count and any spill.
+//   kStages = 2 stages: K/V tiles for the forward and dq, Q/dO tiles with
+//   their lse and delta rows for dk/dv.  The next tile's copies are in
+//   flight while this tile's products run;
+// * shared memory at d 128: forward 16 KB Q + 2 x 32 KB K/V (81 KB with
+//   the alignment slack), dq 32 KB resident Q/dO + 2 x 32 KB K/V (97 KB),
+//   dk/dv 32 KB resident K/V + 2 x 32 KB Q/dO + rows (98 KB): two blocks
+//   share an SM.  Registers: the dk/dv kernel holds the dK and dV
+//   accumulators (d/2 + d/2 fp32 a thread) beside S^T and dP^T (32 + 32),
+//   dq its dQ accumulator (d/2) beside S and dP; ptxas -v reports the
+//   count and any spill.
 // Later work, not done here: a producer warp with TMA and mbarriers and
 // setmaxnreg (warp specialisation), two consumer warpgroups ping-ponging
-// softmax against products, persistent blocks, and K3 (dq) on the tensor
-// cores.
+// softmax against products, persistent blocks.
 //
 // Plain C interface, bound through ctypes: each entry launches on the given
 // stream, allocates nothing, and returns cudaGetLastError() (0 on success).
@@ -642,6 +649,140 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
+// --- K3: dq ---------------------------------------------------------------
+
+// One block per (q tile, batch*head), q tiles last-first, sweeping the live
+// k tiles: the forward's loop with dk/dv's arithmetic.  Q, dO and this
+// thread's lse and delta rows stay resident; K/V tiles flow through the
+// ring.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 2)
+    flash_bwd_dq_sm90_kernel(const bf16* __restrict__ q,
+                             const bf16* __restrict__ k,
+                             const bf16* __restrict__ v,
+                             const bf16* __restrict__ dout,
+                             const float* __restrict__ lse,
+                             const float* __restrict__ delta,
+                             bf16* __restrict__ dq, Strides sq, Strides sk,
+                             Strides sv, Strides sdo, Strides sdq, int heads,
+                             int s_q, int s_k, float scale, int causal) {
+  extern __shared__ uint8_t smem[];
+  constexpr uint32_t kTileB = kTile * D * 2;  // D / 64 slabs of 8 KB
+  const uint32_t sQ = (smem_addr(smem) + 1023) & ~1023u;
+  const uint32_t sdO = sQ + kTileB;
+  // ring stage st: its K tile at sQ + kTileB (2 + 2 st), its V tile next
+  const int warp = threadIdx.x / 32;
+  const int g = (threadIdx.x % 32) / 4;
+  const int t = threadIdx.x % 4;
+  const int n_q = (s_q + kTile - 1) / kTile;
+  const int first_q = (n_q - 1 - blockIdx.x) * kTile;
+  const int bh = blockIdx.y;
+  const int batch = bh / heads;
+  const int head = bh % heads;
+  const bf16* qh = q + batch * sq.b + head * sq.h;
+  const bf16* kh = k + batch * sk.b + head * sk.h;
+  const bf16* vh = v + batch * sv.b + head * sv.h;
+  const bf16* doh = dout + batch * sdo.b + head * sdo.h;
+  int n_k = (s_k + kTile - 1) / kTile;
+  if (causal) n_k = min(n_k, first_q / kTile + 1);
+
+  load_tile<D>(sQ, qh, sq.s, first_q, s_q);
+  load_tile<D>(sdO, doh, sdo.s, first_q, s_q);
+  if (n_k > 0) {
+    load_tile<D>(sQ + 2 * kTileB, kh, sk.s, 0, s_k);
+    load_tile<D>(sQ + 3 * kTileB, vh, sv.s, 0, s_k);
+  }
+  cp_async_commit();
+
+  const int row = first_q + 16 * warp + g;  // this thread's rows: row, row+8
+  float lse2[2], dlt[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = row + 8 * h;
+    const long long at = static_cast<long long>(bh) * s_q + r;
+    lse2[h] = r < s_q ? lse[at] * kLog2e : 0.f;
+    dlt[h] = r < s_q ? delta[at] : 0.f;
+  }
+  float dq_acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dq_acc[i] = 0.f;
+  const float scale2 = scale * kLog2e;
+
+  for (int kt = 0; kt < n_k; ++kt) {
+    const uint32_t sK = sQ + kTileB * (2 + 2 * (kt & 1));
+    const uint32_t sV = sK + kTileB;
+    if (kt + 1 < n_k) {
+      const uint32_t nK = sQ + kTileB * (2 + 2 * ((kt + 1) & 1));
+      load_tile<D>(nK, kh, sk.s, (kt + 1) * kTile, s_k);
+      load_tile<D>(nK + kTileB, vh, sv.s, (kt + 1) * kTile, s_k);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    fence_proxy_async();
+    __syncthreads();
+
+    float s[32], dp[32];
+    fence_regs(s);
+    fence_regs(dp);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n64(s, desc_kmajor(sQ, kk), desc_kmajor(sK, kk), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n64(dp, desc_kmajor(sdO, kk), desc_kmajor(sV, kk), kk > 0);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s);
+    fence_regs(dp);
+
+    const int first_k = kt * kTile;
+    const bool masked = (causal && first_k + kTile - 1 > first_q) ||
+                        first_k + kTile > s_k || first_q + kTile > s_q;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = exp2f(fmaf(s[4 * j + e], scale2, -lse2[e >> 1]));
+        if (masked) {
+          const int c = first_k + 8 * j + 2 * t + (e & 1);
+          const int r = row + 8 * (e >> 1);
+          if (c >= s_k || r >= s_q || (causal && c > r)) p = 0.f;
+        }
+        dp[4 * j + e] = p * (dp[4 * j + e] - dlt[e >> 1]);
+      }
+
+    uint32_t dh[4][4], dl[4][4];
+    split_frags(dp, dh, dl);
+    fence_regs(dq_acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      wgmma_rs<D>(dq_acc, dh[kk], desc_mnmajor(sK, kk));
+      wgmma_rs<D>(dq_acc, dl[kk], desc_mnmajor(sK, kk));
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(dq_acc);
+    __syncthreads();  // this stage is free for the copies of tile kt + 2
+  }
+  cp_async_wait<0>();  // s_k 0: no tile loop waited for Q and dO
+
+  bf16* dqh = dq + batch * sdq.b + head * sdq.h;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = row + 8 * h;
+    if (r >= s_q) continue;
+    bf16* dst = dqh + static_cast<long long>(r) * sdq.s + 2 * t;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) = __floats2bfloat162_rn(
+          dq_acc[4 * j + 2 * h] * scale, dq_acc[4 * j + 2 * h + 1] * scale);
+  }
+}
+
 // --- host side ------------------------------------------------------------
 
 // Dynamic shared memory of a block, with 1024 bytes of alignment slack.
@@ -650,6 +791,9 @@ constexpr int fwd_smem(int d) {
 }
 constexpr int bwd_smem(int d) {
   return 1024 + kTile * d * 2 * (2 + 2 * kStages) + 512 * kStages;
+}
+constexpr int dq_smem(int d) {
+  return 1024 + kTile * d * 2 * (2 + 2 * kStages);
 }
 
 Strides strides_at(const long long* s, int i) {
@@ -695,6 +839,24 @@ int bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int D>
+int bwd_dq(const void* q, const void* k, const void* v, const void* dout,
+           const void* lse, const void* delta, void* dq, const long long* st,
+           int batch, int heads, int s_q, int s_k, float scale, int causal,
+           cudaStream_t stream) {
+  auto kernel = flash_bwd_dq_sm90_kernel<D>;
+  if (int err = set_smem(kernel, dq_smem(D))) return err;
+  const dim3 grid((s_q + kTile - 1) / kTile, batch * heads);
+  kernel<<<grid, kThreads, dq_smem(D), stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<bf16*>(dq), strides_at(st, 0), strides_at(st, 1),
+      strides_at(st, 2), strides_at(st, 3), strides_at(st, 4), heads, s_q,
+      s_k, scale, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // bf16 only (dtype 1); d 64 or 128.
 #define SM90_DISPATCH(FN, ...)                                      \
   if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);  \
@@ -719,6 +881,19 @@ int flash_attention_sm90_fwd(int dtype, int d, const void* q, const void* k,
                 scale, causal, s)
 }
 
+// strides: 5 x (b, s, h) for q, k, v, dout, dq.
+int flash_attention_sm90_bwd_dq(int dtype, int d, const void* q,
+                                const void* k, const void* v,
+                                const void* dout, const void* lse,
+                                const void* delta, void* dq,
+                                const long long* strides, int batch,
+                                int heads, int s_q, int s_k, float scale,
+                                int causal, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  SM90_DISPATCH(bwd_dq, q, k, v, dout, lse, delta, dq, strides, batch, heads,
+                s_q, s_k, scale, causal, s)
+}
+
 // strides: 6 x (b, s, h) for q, k, v, dout, dk, dv.
 int flash_attention_sm90_bwd_dkv(int dtype, int d, const void* q,
                                  const void* k, const void* v,
@@ -732,10 +907,16 @@ int flash_attention_sm90_bwd_dkv(int dtype, int d, const void* q,
                 heads, s_q, s_k, scale, causal, s)
 }
 
-// Dynamic shared memory a block of the forward (kernel 0) or of the dk/dv
-// kernel (1) takes at head dim d (ptxas -v does not count it).
+// Dynamic shared memory a block takes at head dim d (ptxas -v does not
+// count it): kernel 0 the forward, 1 dq, 2 dk/dv, the order of
+// ops/flash_attention.py SM90_KERNELS; -1 for any other.
 int flash_attention_sm90_smem_bytes(int kernel, int d) {
-  return kernel == 0 ? fwd_smem(d) : bwd_smem(d);
+  switch (kernel) {
+    case 0: return fwd_smem(d);
+    case 1: return dq_smem(d);
+    case 2: return bwd_smem(d);
+    default: return -1;
+  }
 }
 
 // Depth of the copy ring.

@@ -10,10 +10,10 @@ The port of ``chainermn_tpu.ops.pallas_attention``'s training kernels:
   (``_flash_bwd_dkv_kernel``, :747).
 
 On CUDA tensors each wrapper launches its hand-written Hopper kernel,
-built by ``nvcc`` at first use, or raises; it never falls back.  bf16
-K2 and K4 run on the tensor cores (``csrc/flash_attention_sm90.cu``:
-``wgmma`` with P and dS split into bf16 hi + lo); their fp32 versions,
-and K3 in both types, on the CUDA cores (``csrc/flash_attention.cu``).
+built by ``nvcc`` at first use, or raises; it never falls back.  In
+bf16, K2, K3 and K4 run on the tensor cores
+(``csrc/flash_attention_sm90.cu``: ``wgmma`` with P and dS split into
+bf16 hi + lo); in fp32, on the CUDA cores (``csrc/flash_attention.cu``).
 On CPU tensors a wrapper runs its plain PyTorch version
 (``*_reference``), which is what the CPU tests hold against the JAX
 package.  Each wrapper counts its kernel launches in ``.launches`` (the
@@ -40,7 +40,7 @@ import torch
 
 from . import _build
 
-# q and k tile rows of csrc/flash_attention.cu (one block per tile)
+# q and k tile rows of both sources (one block per tile)
 BLOCK_Q = BLOCK_K = 64
 _NEG_INF = -1e30
 _HEAD_DIMS = (64, 128)
@@ -279,7 +279,7 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_backward_dq(q, k, v, dout, lse, delta, causal: bool,
                       scale: float) -> torch.Tensor:
     """K3: dq from the saved lse and delta (both fp32 (b*h, s_q)); dq in
-    q's dtype."""
+    q's dtype (bf16 on the tensor cores, fp32 on the CUDA cores)."""
     if _on_cpu("flash_backward_dq", q, k, v, dout):
         return flash_backward_dq_reference(q, k, v, dout, lse, delta,
                                            causal, scale)
@@ -294,7 +294,10 @@ def flash_backward_dq(q, k, v, dout, lse, delta, causal: bool,
         return dq
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = _library().flash_attention_bwd_dq(
+        fn = (_sm90_library().flash_attention_sm90_bwd_dq
+              if q.dtype == torch.bfloat16
+              else _library().flash_attention_bwd_dq)
+        err = fn(
             _DTYPE_CODE[q.dtype], d, q.data_ptr(), k.data_ptr(),
             v.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
             dq.data_ptr(), _strides(q, k, v, dout, dq), b, h, s_q,
@@ -363,8 +366,9 @@ def smem_bytes(kernel: str, d: int, dtype=torch.float32) -> int:
         0 if kernel == "flash_forward" else 1, d)
 
 
-# The wrappers whose bf16 kernels are in csrc/flash_attention_sm90.cu.
-SM90_KERNELS = ("flash_forward", "flash_backward_dkv")
+# The wrappers whose bf16 kernels are in csrc/flash_attention_sm90.cu, in
+# the order of its flash_attention_sm90_smem_bytes switch.
+SM90_KERNELS = ("flash_forward", "flash_backward_dq", "flash_backward_dkv")
 
 
 def design(kernel: str, dtype, d: int) -> dict:
@@ -380,6 +384,9 @@ def design(kernel: str, dtype, d: int) -> dict:
     products = {
         "flash_forward": {"Q.K^T": "wgmma m64n64k16, A and B from shared",
                           "P.V": rs},
+        "flash_backward_dq": {"Q.K^T": "wgmma m64n64k16, both shared",
+                              "dO.V^T": "wgmma m64n64k16, both shared",
+                              "dS.K": rs},
         "flash_backward_dkv": {"K.Q^T": "wgmma m64n64k16, both shared",
                                "V.dO^T": "wgmma m64n64k16, both shared",
                                "P^T.dO": rs, "dS^T.Q": rs},
@@ -417,9 +424,12 @@ def _sm90_library() -> ctypes.CDLL:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         tail = [i32] * 4 + [ctypes.c_float, i32, ptr]
         lib.flash_attention_sm90_fwd.argtypes = [i32, i32] + [ptr] * 6 + tail
+        lib.flash_attention_sm90_bwd_dq.argtypes = ([i32, i32] + [ptr] * 8
+                                                    + tail)
         lib.flash_attention_sm90_bwd_dkv.argtypes = ([i32, i32] + [ptr] * 9
                                                      + tail)
         for fn in (lib.flash_attention_sm90_fwd,
+                   lib.flash_attention_sm90_bwd_dq,
                    lib.flash_attention_sm90_bwd_dkv):
             fn.restype = i32
         lib.flash_attention_sm90_smem_bytes.argtypes = [i32, i32]

@@ -8,15 +8,19 @@ never falls back.  On a CPU tensor it runs the plain PyTorch version,
 :func:`paged_decode_reference`, which is what the CPU tests hold against
 the JAX package.
 
-``flash_decode.launches`` counts kernel launches (the CPU path does not
-count), so a run can show that its decode steps went through the
-kernel.
+The kernel splits each slot's live pages across blocks (split-K,
+"flash-decoding"): :func:`decode_splits` picks the number of splits on
+the host from the batch, the heads and the card's SM count, without
+reading ``lengths``; the last block of each (slot, head) merges the
+splits in the same launch.  ``flash_decode.launches`` counts wrapper
+calls that launched it (the CPU path does not count), so a run can show
+that its decode steps went through the kernel.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -26,7 +30,14 @@ _NEG_INF = -1e30
 _HEAD_DIMS = (32, 64, 128, 256)
 _ENTRY = {torch.bfloat16: "flash_decode_bf16",
           torch.float32: "flash_decode_f32"}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _LIB: Optional[ctypes.CDLL] = None
+# (slot, head) arrival counters by (device, stream): zeros when made, and
+# each launch leaves them zero
+_COUNTERS: Dict[Tuple[int, int], torch.Tensor] = {}
+_SM_COUNT: Dict[int, int] = {}
+# (slot, head, split) blocks wanted on every SM
+BLOCKS_PER_SM = 4
 
 # The kernel against paged_decode_reference on the same inputs
 # (``torch.testing.assert_close`` arguments).  Both accumulate in fp32;
@@ -79,13 +90,19 @@ def flash_decode(q: torch.Tensor, k_pages: torch.Tensor,
         return out
     b, h, d = q.shape
     page_size = k_pages.shape[1]
+    pps = block_tables.shape[1]
+    splits = decode_splits(b, h, pps, _sm_count(q.device.index))
+    work = torch.empty(b * h * splits * (d + 2), dtype=torch.float32,
+                       device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
+        counters = _counters(q.device, stream, b * h)
         lib = _library()
         err = getattr(lib, _ENTRY[q.dtype])(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-            b, h, d, page_size, block_tables.shape[1], float(scale), stream,
+            work.data_ptr(), counters.data_ptr(), b, h, d, page_size, pps,
+            splits, float(scale), stream,
         )
     if err:
         raise RuntimeError(
@@ -97,6 +114,55 @@ def flash_decode(q: torch.Tensor, k_pages: torch.Tensor,
 
 
 flash_decode.launches = 0
+
+
+def decode_splits(batch: int, heads: int, pages_per_slot: int,
+                  sm_count: int) -> int:
+    """How many splits the kernel cuts each slot's live pages into:
+    enough (slot, head, split) blocks for :data:`BLOCKS_PER_SM` on each
+    of ``sm_count`` SMs, and no more than the table has pages.  On the
+    device a slot of ``n`` live pages gives each split ``ceil(n /
+    splits)`` whole pages."""
+    want = -(-BLOCKS_PER_SM * sm_count // max(batch * heads, 1))
+    return max(1, min(want, pages_per_slot))
+
+
+def design(dtype, d: int, batch: int, heads: int, pages_per_slot: int,
+           device="cuda") -> dict:
+    """How the kernel cuts a launch at these shapes on ``device``'s
+    card: its splits and blocks, the K/V rows a block stages at a time,
+    the depth of its copy ring and where the splits merge (builds the
+    library)."""
+    device = torch.device(device)
+    index = (device.index if device.index is not None
+             else torch.cuda.current_device())
+    splits = decode_splits(batch, heads, pages_per_slot, _sm_count(index))
+    lib = _library()
+    return {"source": "csrc/flash_decode.cu", "splits": splits,
+            "blocks": batch * heads * splits,
+            "chunk_rows": lib.flash_decode_chunk(_DTYPE_CODE[dtype], d),
+            "ring_stages": lib.flash_decode_stages(),
+            "copies": "cp.async 16-byte",
+            "merge": "last block of each (slot, head), same launch"}
+
+
+def _sm_count(index: int) -> int:
+    if index not in _SM_COUNT:
+        _SM_COUNT[index] = torch.cuda.get_device_properties(
+            index).multi_processor_count
+    return _SM_COUNT[index]
+
+
+def _counters(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    """The (slot, head) arrival counters of launches on ``stream`` of
+    the CUDA ``device``: made zero once, and left zero by every launch
+    (the merging block resets its counter), so launches on one stream
+    share them."""
+    key = (device.index, stream)
+    c = _COUNTERS.get(key)
+    if c is None or c.numel() < n:
+        c = _COUNTERS[key] = torch.zeros(n, dtype=torch.int32, device=device)
+    return c
 
 
 def _check_args(q, k_pages, v_pages, block_tables, lengths) -> None:
@@ -146,8 +212,12 @@ def _library() -> ctypes.CDLL:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         for name in _ENTRY.values():
             fn = getattr(lib, name)
-            fn.argtypes = [ptr] * 6 + [i32] * 5 + [ctypes.c_float, ptr]
+            fn.argtypes = [ptr] * 8 + [i32] * 6 + [ctypes.c_float, ptr]
             fn.restype = i32
+        lib.flash_decode_chunk.argtypes = [i32, i32]
+        lib.flash_decode_chunk.restype = i32
+        lib.flash_decode_stages.argtypes = []
+        lib.flash_decode_stages.restype = i32
         lib.flash_decode_error_string.argtypes = [i32]
         lib.flash_decode_error_string.restype = ctypes.c_char_p
         _LIB = lib

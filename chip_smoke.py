@@ -10,11 +10,11 @@ Run from the repository root, with one card.  Phases:
    kernel source under ``chainermn_tpu_torch/ops/csrc`` built (one
    ``nvcc`` each, in parallel), with registers, shared memory and
    spills;
-2. the decode kernel against its plain PyTorch version on the card, at
-   the shapes the serving path gives it, with the tolerance stated, and timed
-   beside the plain version, one PyTorch library call computing the same
-   function (timed here only, as a yardstick) and the least time the
-   card could take (its bound);
+2. the split-K decode kernel against its plain PyTorch version on the
+   card, at the shapes the serving path gives it, with the tolerance
+   stated, its splits and chunk, and timed beside the plain version, one
+   PyTorch library call computing the same function (timed here only, as
+   a yardstick) and the least time the card could take (its bound);
 3. the serving path: the full-width TransformerLM served through
    ``ContinuousBatcher`` -> ``DecodeEngine(attention_impl="flash")``, with
    every kernel's launch count set to 0 just before and read just after;
@@ -23,13 +23,14 @@ Run from the repository root, with one card.  Phases:
 4. a ``torch.profiler`` breakdown of a steady decode step for both
    attends (device time by kernel, launches per step, idle share, host
    ops), and the page allocator's host time per decode step;
-5. the flash-attention training kernels (forward, dq, dk/dv) against
-   their plain versions at the training shape (bf16 and fp32), a ragged
-   causal shape and a non-causal cross shape, timed at the training
-   shape beside their plain versions, scaled_dot_product_attention and
-   their bounds, with each kernel's achieved TFLOP/s, share of its
-   bound, design (tensor-core or CUDA-core products, copy ring), shared
-   memory and registers;
+5. the flash-attention training kernels (forward, dq, dk/dv; bf16 on
+   the tensor cores, fp32 on the CUDA cores) against their plain
+   versions at the training shape (bf16 and fp32), a ragged causal
+   shape and a non-causal cross shape, timed at the training shape
+   beside their plain versions, scaled_dot_product_attention and their
+   bounds, with each kernel's achieved TFLOP/s, share of its bound,
+   design (tensor-core or CUDA-core products, copy ring), shared memory
+   and registers (a spill in the bf16 kernels fails the run);
 6. the training main path: the full-width TransformerLM trained on
    batch 8 x 2048 tokens through ``create_communicator`` ->
    ``bcast_data`` -> ``create_multi_node_optimizer(AdamW)`` ->
@@ -76,6 +77,7 @@ from chainermn_tpu_torch.ops import flash_attention as fa
 from chainermn_tpu_torch.ops import fused_cast_scale as fcs
 from chainermn_tpu_torch.ops.flash_decode import (
     TOLERANCE, flash_decode, paged_decode_reference)
+from chainermn_tpu_torch.ops.flash_decode import design as decode_design
 from chainermn_tpu_torch.serving import ContinuousBatcher, DecodeEngine, Request
 
 # The repo's "shipping" TransformerLM (benchmarks/transformer_mfu.py:53,76),
@@ -112,14 +114,18 @@ def check(ok, what):
 
 
 def cuda_time_ms(fn, n_layers, iters):
-    """Mean ms per call of fn(layer), cycling through the layers so the
-    working set (all layers' live pages) exceeds the 50 MB L2 cache as
-    in a decode step; CUDA events around the timed loop."""
+    """Mean device ms per call of fn(layer), cycling through the layers
+    so the working set (all layers' live pages) exceeds the 50 MB L2
+    cache as in a decode step: CUDA events around ``iters`` calls queued
+    behind a spin kernel, so the card runs them back to back and the
+    host's launch time does not show where a kernel is shorter than its
+    Python wrapper."""
     for i in range(2 * n_layers):
         fn(i % n_layers)
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)  # ~50 ms at the H100's clock
     start.record()
     for i in range(iters):
         fn(i % n_layers)
@@ -174,6 +180,10 @@ def kernel_phase(lengths):
     rec = {}
     for dtype in (torch.bfloat16, torch.float32):
         q, k, v, tables, lens = decode_inputs(dtype, lengths, dev, SEED)
+        design = decode_design(dtype, q.shape[-1], CAPACITY, N_HEADS,
+                               tables.shape[1], dev)
+        design.update(PTXAS.get(("flash_decode", TYPE_TAG[dtype],
+                                 q.shape[-1]), {}))
         ref = [paged_decode_reference(q, k[i], v[i], tables, lens)
                for i in range(N_LAYERS)]
         out = [flash_decode(q, k[i], v[i], tables, lens)
@@ -200,7 +210,9 @@ def kernel_phase(lengths):
 
         ms = cuda_time_ms(
             lambda i: flash_decode(q, k[i], v[i], tables, lens),
-            N_LAYERS, 50 * N_LAYERS)
+            N_LAYERS, 25 * N_LAYERS)
+        host_ms = host_enqueue_ms(
+            lambda: flash_decode(q, k[0], v[0], tables, lens), 50)
         plain_ms = cuda_time_ms(
             lambda i: paged_decode_reference(q, k[i], v[i], tables, lens),
             N_LAYERS, 5 * N_LAYERS)
@@ -210,7 +222,11 @@ def kernel_phase(lengths):
         bound_ms, bound_by = flash_decode_bound(lengths, dtype)
         log(f"flash_decode {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f}"
             f" ms, library {library_ms} ms, bound {bound_ms:.4f} ms "
-            f"({bound_by}), {bound_ms / ms:.1%} of bound")
+            f"({bound_by}), {bound_ms / ms:.1%} of bound (device time); "
+            f"the wrapper's host time {host_ms:.4f} ms a call; "
+            f"{design['splits']} splits ({design['blocks']} blocks), merged "
+            f"by the {design['merge']} (no merge kernel); design "
+            f"{json.dumps(design)}")
 
         # dead pages (past each slot's length) poisoned with NaN: the
         # kernel never reads them, so its output must not move at all
@@ -222,10 +238,11 @@ def kernel_phase(lengths):
             again = flash_decode(q, k[i], v[i], tables, lens)
             check(torch.equal(again, out[i]), "dead pages changed output")
         log(f"flash_decode {name}: NaN-poisoned dead pages leave the "
-            f"output bit-identical")
+            f"output bit-identical to the first call's")
         rec[dtype] = dict(max_abs_err=err, share_of_tolerance=used, ms=ms, plain_ms=plain_ms,
                           bound_ms=bound_ms, bound_by=bound_by,
-                          library_ms=library_ms)
+                          library_ms=library_ms, design=design,
+                          host_ms_per_launch=host_ms)
         del q, k, v, ref, out
         torch.cuda.empty_cache()
     return rec
@@ -491,7 +508,7 @@ GRAD_NORM_GAP_BOUND = 1e-2
 
 
 def event_ms(fn, iters):
-    """Mean ms per call of fn() (CUDA events; ``cuda_time_ms`` with one
+    """Mean device ms per call of fn() (``cuda_time_ms`` with one
     working set)."""
     return cuda_time_ms(lambda _: fn(), 1, iters)
 
@@ -606,8 +623,7 @@ def flash_kernel_phase():
                     tflops = flash_ops(name, shape) / ms / 1e9
                     design = fa.design(name, dtype, shape[4])
                     design.update(PTXAS.get(
-                        (name, "f32" if dtype == torch.float32 else "bf16",
-                         shape[4]), {}))
+                        (name, TYPE_TAG[dtype], shape[4]), {}))
                     rec.setdefault(dtype, {})[name] = dict(
                         max_abs_err=err, share_of_tolerance=used, ms=ms,
                         plain_ms=plain_ms, bound_ms=bound_ms,
@@ -785,9 +801,9 @@ def train_phase():
                 attn[m[1]] = (attn.get(m[1], 0.0)
                               + e.self_device_time_total / 1e3)
         attn_ms = sum(attn.values())
-        # the bf16 step runs K2 and K4 on the tensor cores, K3 on the CUDA
-        # cores, and nothing else of the flash kernels
-        check(sorted(attn) == ["flash_bwd_dkv_sm90", "flash_bwd_dq",
+        # the bf16 step runs K2, K3 and K4 on the tensor cores, and
+        # nothing else of the flash kernels
+        check(sorted(attn) == ["flash_bwd_dkv_sm90", "flash_bwd_dq_sm90",
                                "flash_fwd_sm90"],
               f"flash kernels in the profiled step: {sorted(attn)}")
         log(f"profile train step: device busy {busy:.3f} ms in {n_kernels} "
@@ -902,7 +918,7 @@ def cast_kernel_phase(bucket_sizes):
             + [(w, torch.float32) for w in wire])
     bound_by = "bytes"
     for x, dst in legs:
-        ms = queued_ms(lambda: fcs.fused_cast_scale(x, 1.0, dst), 50)
+        ms = event_ms(lambda: fcs.fused_cast_scale(x, 1.0, dst), 50)
         bound_ms, bound_by = cast_bound(x.numel(), x.dtype, dst)
         log(f"fused_cast_scale {str(x.dtype)[6:]}->{str(dst)[6:]} "
             f"n={x.numel()}: kernel {ms:.4f} ms alone (its input "
@@ -917,11 +933,11 @@ def cast_kernel_phase(bucket_sizes):
     # then every bucket back: 2 x 102 MB of fp32, beyond the L2 cache)
     n = len(legs)
     step = {
-        "ms": queued_ms(each_leg(
+        "ms": event_ms(each_leg(
             lambda x, dst: fcs.fused_cast_scale(x, 1.0, dst)), 20),
-        "plain_ms": queued_ms(each_leg(
+        "plain_ms": event_ms(each_leg(
             lambda x, dst: fcs.cast_scale_reference(x, 1.0, dst)), 20),
-        "library_ms": queued_ms(each_leg(lambda x, dst: x.to(dst)), 20),
+        "library_ms": event_ms(each_leg(lambda x, dst: x.to(dst)), 20),
         "bound_ms": sum(cast_bound(x.numel(), x.dtype, dst)[0]
                         for x, dst in legs),
     }
@@ -939,24 +955,6 @@ def cast_kernel_phase(bucket_sizes):
     del grads, wire, legs
     torch.cuda.empty_cache()
     return rec
-
-
-def queued_ms(fn, iters):
-    """Mean device ms per call of fn(): CUDA events around ``iters``
-    calls queued behind a spin kernel, so the card runs them back to
-    back and the host's launch time does not show (fn's kernels are
-    shorter than its Python wrapper)."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(50_000_000)  # ~25 ms at the H100's clock
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def host_enqueue_ms(fn, iters):
@@ -1217,6 +1215,10 @@ def build_all():
         f"{k} {str(dt).split('.')[-1]} d{d} {fa.smem_bytes(k, d, dt)} bytes"
         for k in FLASH_KERNELS for dt in (torch.bfloat16, torch.float32)
         for d in (64, 128)))
+    for key, rec in sorted(PTXAS.items()):
+        if key[1] == "bf16" and key[0] in FLASH_KERNELS:
+            check(rec.get("spill_stores") == 0,
+                  f"ptxas spill in {key}: {rec}")
 
 
 # ptxas registers a thread and spill stores of the flash kernels, by
@@ -1226,16 +1228,21 @@ FLASH_KERNEL_OF = {
     "flash_fwd_kernel": "flash_forward",
     "flash_fwd_sm90_kernel": "flash_forward",
     "flash_bwd_dq_kernel": "flash_backward_dq",
+    "flash_bwd_dq_sm90_kernel": "flash_backward_dq",
     "flash_bwd_dkv_kernel": "flash_backward_dkv",
     "flash_bwd_dkv_sm90_kernel": "flash_backward_dkv",
+    "flash_decode_kernel": "flash_decode",
 }
+TYPE_TAG = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
 # type names in the kernels' mangled names
 MANGLED_TYPES = {"f": "f32", "13__nv_bfloat16": "bf16", "6__half": "f16"}
 # the type of the flash kernels that are templates on d alone
-FLASH_ENTRY_TYPES = {"flash_fwd_kernel": "f32", "flash_bwd_dkv_kernel": "f32",
+FLASH_ENTRY_TYPES = {"flash_fwd_kernel": "f32", "flash_bwd_dq_kernel": "f32",
+                     "flash_bwd_dkv_kernel": "f32",
                      "flash_fwd_sm90_kernel": "bf16",
+                     "flash_bwd_dq_sm90_kernel": "bf16",
                      "flash_bwd_dkv_sm90_kernel": "bf16"}
 
 
@@ -1316,7 +1323,8 @@ def main():
         "flash_decode", "chainermn_tpu_torch/ops/csrc/flash_decode.cu",
         "chainermn_tpu/ops/pallas_attention.py:1271",
         serve_path["launches"], kern[torch.bfloat16], "bfloat16")]
-    records[0]["tolerance"] = TOLERANCE[torch.bfloat16]
+    records[0].update(tolerance=TOLERANCE[torch.bfloat16],
+                      design=kern[torch.bfloat16]["design"])
     for name in FLASH_KERNELS:
         r = flash[torch.bfloat16][name]
         records.append(kernel_record(

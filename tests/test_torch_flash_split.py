@@ -1,12 +1,12 @@
 """The numerics argument of the tensor-core flash kernels, on the CPU.
 
-The bf16 forward (K2) and dk/dv (K4) kernels in
-``chainermn_tpu_torch/ops/csrc/flash_attention_sm90.cu`` compute the two
-products whose left operand is fp32 (P.V, P^T.dO, dS^T.Q) on bf16
+The bf16 forward (K2), dq (K3) and dk/dv (K4) kernels in
+``chainermn_tpu_torch/ops/csrc/flash_attention_sm90.cu`` compute the
+products whose left operand is fp32 (P.V, dS.K, P^T.dO, dS^T.Q) on bf16
 tensor cores by splitting that operand into ``hi = bf16(x)`` and
 ``lo = bf16(x - hi)``: ``x.B = hi.B + lo.B``, each a bf16 x bf16
 product accumulated in fp32.  Here plain torch emulates that arithmetic
-on numpy-seeded inputs and holds O, dK and dV to the same
+on numpy-seeded inputs and holds O, dQ, dK and dV to the same
 ``flash_attention.tolerance`` the kernels are held to on the card,
 against the plain versions (fp32 P and dS).  A single bf16 rounding of
 P and dS, the negative control, must fail it.
@@ -68,22 +68,33 @@ def _emulated_forward(q, k, v, causal, scale, split):
     return (o / torch.clamp(l, min=1e-30)).to(q.dtype)
 
 
-def _emulated_dkv(q, k, v, do, lse, delta, causal, scale, split):
-    """The dk/dv kernel's arithmetic: P from the saved lse, dS =
-    P (dP - delta), dV = P^T.dO, dK = dS^T.Q * scale."""
+def _probs_and_dscores(q, k, v, do, lse, delta, causal, scale):
+    """P from the saved lse (zero where masked) and dS = P (dP - delta),
+    fp32, as both backward kernels compute them."""
     b, s_q, h, _ = q.shape
     p = torch.exp(_scores(q, k, causal, scale) - lse.reshape(b, h, s_q, 1))
     if causal:
         p = p.masked_fill(~fa._causal_mask(s_q, k.shape[1], p.device), 0.0)
     dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
-    ds = p * (dp - delta.reshape(b, h, s_q, 1))
+    return p, p * (dp - delta.reshape(b, h, s_q, 1))
+
+
+def _emulated_dq(q, k, v, do, lse, delta, causal, scale, split):
+    """The dq kernel's arithmetic: dQ = dS.K * scale."""
+    _, ds = _probs_and_dscores(q, k, v, do, lse, delta, causal, scale)
+    return (_product(ds, k, "bhqk,bkhd->bqhd", split) * scale).to(q.dtype)
+
+
+def _emulated_dkv(q, k, v, do, lse, delta, causal, scale, split):
+    """The dk/dv kernel's arithmetic: dV = P^T.dO, dK = dS^T.Q * scale."""
+    p, ds = _probs_and_dscores(q, k, v, do, lse, delta, causal, scale)
     dv = _product(p, do, "bhqk,bqhd->bkhd", split)
     dk = _product(ds, q, "bhqk,bqhd->bkhd", split) * scale
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
 def _outputs(case, split):
-    """(emulated, plain) pairs for O, dK and dV."""
+    """(emulated, plain) pairs for O, dQ, dK and dV."""
     q, k, v, do = _inputs(case)
     causal = case[4]
     scale = q.shape[-1] ** -0.5
@@ -91,11 +102,14 @@ def _outputs(case, split):
     ref_out, ref_lse = fa.flash_forward_reference(q, k, v, causal, scale)
     delta = ((do.float() * ref_out.float()).sum(-1).transpose(1, 2)
              .reshape(b * h, s_q))
-    ref_dk, ref_dv = fa.flash_backward_dkv_reference(
-        q, k, v, do, ref_lse, delta, causal, scale)
+    args = (q, k, v, do, ref_lse, delta, causal, scale)
+    ref_dq = fa.flash_backward_dq_reference(*args)
+    ref_dk, ref_dv = fa.flash_backward_dkv_reference(*args)
     out = _emulated_forward(q, k, v, causal, scale, split)
-    dk, dv = _emulated_dkv(q, k, v, do, ref_lse, delta, causal, scale, split)
-    return {"out": (out, ref_out), "dk": (dk, ref_dk), "dv": (dv, ref_dv)}
+    dq = _emulated_dq(*args, split)
+    dk, dv = _emulated_dkv(*args, split)
+    return {"out": (out, ref_out), "dq": (dq, ref_dq), "dk": (dk, ref_dk),
+            "dv": (dv, ref_dv)}
 
 
 def _ids(case):
@@ -113,7 +127,7 @@ def test_hi_lo_split_within_tolerance(case):
 @pytest.mark.parametrize("case", CASES, ids=_ids)
 def test_single_bf16_fails_tolerance(case):
     """Negative control: P and dS rounded once to bf16 (about 2^-9 of
-    each element) leave every one of O, dK and dV outside the
+    each element) leave every one of O, dQ, dK and dV outside the
     tolerance."""
     for name, (got, ref) in _outputs(case, split=False).items():
         with pytest.raises(AssertionError):

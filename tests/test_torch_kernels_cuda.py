@@ -12,6 +12,8 @@ import torch
 
 from chainermn_tpu_torch.ops.flash_decode import (
     TOLERANCE,
+    decode_splits,
+    design,
     flash_decode,
     paged_decode_reference,
 )
@@ -26,37 +28,60 @@ def _need_card():
 @pytest.mark.parametrize("d_head", [32, 64, 128, 256])
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 def test_flash_decode_matches_plain_version(dtype, d_head):
-    """The sm_90a kernel against its plain version at the serving
-    geometry (8 slots, 8 heads, 16-token pages, 128 pages a slot):
-    ragged lengths, a length-0 slot, NaN-poisoned dead pages.
+    """The split-K sm_90a kernel against its plain version at the
+    serving geometry (8 slots, 8 heads, 16-token pages, 128 pages a
+    slot) for four sets of lengths: ragged with a length-0 slot;
+    lengths of 1 and at a split boundary and one position either side
+    (a slot of 2 * splits pages gives each split 2 pages); every slot
+    at 2048; one long slot among short ones.  Each with NaN-poisoned
+    dead pages (never read, so the output does not move), and two
+    calls bit-identical (the splits merge in a fixed order).
     Tolerance: ``TOLERANCE``, one bf16 ulp of each element (the two
     fp32 results may straddle a rounding boundary); fp32 by summation
     order over up to 2048 positions."""
     _need_card()
     dt = getattr(torch, dtype)
-    g = torch.Generator().manual_seed(d_head)
     b, h, ps, pps = 8, 8, 16, 128
+    splits = decode_splits(b, h, pps, torch.cuda.get_device_properties(
+        0).multi_processor_count)
+    # the chunk tests/test_torch_flash_decode_split.py emulates: 8 KB of
+    # K and V rows
+    size = torch.finfo(dt).bits // 8
+    assert design(dt, d_head, b, h, pps)["chunk_rows"] * 2 * d_head * size \
+        == 8192
+    edge = 2 * splits * ps
+    length_sets = [[1, 17, 64, 300, 0, 1023, 1056, 2048],
+                   [edge - 1, edge, edge + 1, 2 * ps - 1, 2 * ps + 1, 1, 0,
+                    ps],
+                   [pps * ps] * b,
+                   [2048, 1, 2, 3, 16, 17, 5, 9]]
+    g = torch.Generator().manual_seed(d_head)
     n_pages = b * pps + 1
-    q = torch.randn(b, h, d_head, generator=g).to("cuda", dt)
-    k = torch.randn(n_pages, ps, h, d_head, generator=g).to("cuda", dt)
-    v = torch.randn(n_pages, ps, h, d_head, generator=g).to("cuda", dt)
-    tables = (torch.randperm(b * pps, generator=g) + 1).reshape(b, pps)
-    lengths = torch.tensor([1, 17, 64, 300, 0, 1023, 1056, 2048])
-    tables_d = tables.int().cuda()
-    lengths_d = lengths.int().cuda()
-    ref = paged_decode_reference(q, k, v, tables_d, lengths_d)
-    clean = flash_decode(q, k, v, tables_d, lengths_d)
-    for s in range(b):
-        dead = tables[s, -(-int(lengths[s]) // ps):].cuda()
-        k[dead] = float("nan")
-        v[dead] = float("nan")
-    before = flash_decode.launches
-    out = flash_decode(q, k, v, tables_d, lengths_d)
-    torch.cuda.synchronize()
-    assert flash_decode.launches == before + 1
-    assert torch.equal(out, clean)  # dead pages are never read
-    assert torch.all(out[4] == 0)
-    torch.testing.assert_close(out.float(), ref.float(), **TOLERANCE[dt])
+    for lengths in length_sets:
+        q = torch.randn(b, h, d_head, generator=g).to("cuda", dt)
+        k = torch.randn(n_pages, ps, h, d_head, generator=g).to("cuda", dt)
+        v = torch.randn(n_pages, ps, h, d_head, generator=g).to("cuda", dt)
+        tables = (torch.randperm(b * pps, generator=g) + 1).reshape(b, pps)
+        tables_d = tables.int().cuda()
+        lengths_d = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+        ref = paged_decode_reference(q, k, v, tables_d, lengths_d)
+        clean = flash_decode(q, k, v, tables_d, lengths_d)
+        again = flash_decode(q, k, v, tables_d, lengths_d)
+        for s in range(b):
+            dead = tables[s, -(-lengths[s] // ps):].cuda()
+            k[dead] = float("nan")
+            v[dead] = float("nan")
+        before = flash_decode.launches
+        out = flash_decode(q, k, v, tables_d, lengths_d)
+        torch.cuda.synchronize()
+        assert flash_decode.launches == before + 1
+        assert torch.equal(again, clean), lengths  # reruns agree
+        assert torch.equal(out, clean), lengths  # dead pages never read
+        for s, n in enumerate(lengths):
+            if n == 0:
+                assert torch.all(out[s] == 0)
+        torch.testing.assert_close(out.float(), ref.float(), **TOLERANCE[dt],
+                                   msg=lambda m: f"lengths {lengths}: {m}")
 
 
 @pytest.mark.cuda
@@ -121,8 +146,8 @@ def test_flash_attention_kernels_match_plain_versions(dtype, shape):
     (the backward kernels get the plain forward's lse and delta), with
     ``flash_attention.tolerance``: 2^-13 of the output's scale for the
     fp32 summation order, plus one bf16 ulp of each element in bf16.
-    In bf16, K2 and K4 are the tensor-core kernels, whose P and dS are
-    split into bf16 hi + lo."""
+    In bf16, K2, K3 and K4 are the tensor-core kernels, whose P and dS
+    are split into bf16 hi + lo."""
     _need_card()
     from chainermn_tpu_torch.ops import flash_attention as fa
 
@@ -152,6 +177,16 @@ def test_flash_attention_kernels_match_plain_versions(dtype, shape):
         torch.testing.assert_close(got, ref, **fa.tolerance(ref))
     assert (fa.flash_forward.launches, fa.flash_backward_dq.launches,
             fa.flash_backward_dkv.launches) == tuple(n + 1 for n in n0)
+    _assert_route(fa, dt, shape[4])
+
+
+def _assert_route(fa, dt, d):
+    """bf16 K2, K3 and K4 run on the tensor cores, fp32 on the CUDA
+    cores."""
+    want = ("csrc/flash_attention_sm90.cu" if dt == torch.bfloat16
+            else "csrc/flash_attention.cu")
+    for name in ("flash_forward", "flash_backward_dq", "flash_backward_dkv"):
+        assert fa.design(name, dt, d)["source"] == want, name
 
 
 @pytest.mark.cuda
@@ -191,6 +226,7 @@ def test_flash_attention_kernels_on_small_shapes(dtype, shape):
                      (dv, ref_dv),
                      (dq, fa.flash_backward_dq_reference(*args))):
         torch.testing.assert_close(got, ref, **fa.tolerance(ref))
+    _assert_route(fa, q.dtype, shape[4])
 
 
 @pytest.mark.cuda
@@ -230,12 +266,13 @@ def test_flash_attention_kernels_on_strided_views(dtype, d):
     torch.cuda.synchronize()
     for got, ref in ((dq, ref_dq), (dk, ref_dk), (dv, ref_dv)):
         torch.testing.assert_close(got, ref, **fa.tolerance(ref))
+    _assert_route(fa, dt, d)
 
 
 @pytest.mark.cuda
 def test_flash_tensor_core_kernels_deterministic():
-    """The bf16 K2 and K4 own their output tiles (no atomics): two runs
-    on the same inputs agree bit for bit."""
+    """The bf16 K2, K3 and K4 own their output tiles (no atomics): two
+    runs on the same inputs agree bit for bit."""
     _need_card()
     from chainermn_tpu_torch.ops import flash_attention as fa
 
@@ -245,11 +282,14 @@ def test_flash_tensor_core_kernels_deterministic():
     b, s_q, h, _ = q.shape
     delta = ((do.float() * out.float()).sum(-1).transpose(1, 2)
              .reshape(b * h, s_q).contiguous())
+    dq = fa.flash_backward_dq(q, k, v, do, lse, delta, True, scale)
     dk, dv = fa.flash_backward_dkv(q, k, v, do, lse, delta, True, scale)
     out2, lse2 = fa.flash_forward(q, k, v, True, scale)
+    dq2 = fa.flash_backward_dq(q, k, v, do, lse, delta, True, scale)
     dk2, dv2 = fa.flash_backward_dkv(q, k, v, do, lse, delta, True, scale)
     torch.cuda.synchronize()
-    for a, b2 in ((out, out2), (lse, lse2), (dk, dk2), (dv, dv2)):
+    for a, b2 in ((out, out2), (lse, lse2), (dq, dq2), (dk, dk2),
+                  (dv, dv2)):
         assert torch.equal(a, b2)
 
 

@@ -24,15 +24,17 @@ data-parallel image path of ChainerMN's examples (``models.MLP``,
 ``models.ResNet50``, ``iterators``, ``training.Trainer``,
 ``create_multi_node_evaluator``, ``examples.train_mnist`` and
 ``examples.train_imagenet``) with the reduced-precision gradient wire
-on the ``ops.fused_cast_scale`` kernel.
+on the ``ops.fused_cast_scale`` kernel; and synchronized BatchNorm
+(``links.create_mnbn_model``) with the ``hierarchical`` communicator,
+the ``int8`` gradient wire and error feedback.
 """
 
 import importlib
 
 _SUBPACKAGES = ("comm_wire", "communicators", "datasets", "examples",
-                "extensions", "global_except_hook", "iterators", "models",
-                "observability", "ops", "resilience", "serving", "training",
-                "utils")
+                "extensions", "functions", "global_except_hook", "iterators",
+                "links", "models", "observability", "ops", "resilience",
+                "serving", "training", "utils")
 
 # top-level entry points, as chainermn_tpu exports them: name -> module
 _ENTRY_POINTS = {

@@ -1,7 +1,15 @@
-"""The gradient wire: bucket planner and cast codecs (port of
-``chainermn_tpu/comm_wire``'s planner and codecs)."""
+"""The gradient wire: bucket planner, codecs and collective schedules
+(port of ``chainermn_tpu/comm_wire``'s planner, codecs and the analytic
+half of its schedules)."""
 
-from .codecs import CODECS, WireConfig, codec_of_dtype, reduce_buckets, resolve_wire
+from .codecs import (
+    CODECS,
+    WireConfig,
+    codec_of_dtype,
+    reduce_buckets,
+    resolve_wire,
+    uses_error_feedback,
+)
 from .planner import (
     DEFAULT_BUCKET_BYTES,
     DEFAULT_MAX_BUCKETS,
@@ -13,10 +21,26 @@ from .planner import (
     plan_of_tree,
     unflatten_from_buckets,
 )
+from .schedules import (
+    GRAD_SCHEDULES,
+    MIN_HIER_INTER_SAVINGS,
+    AxisSplit,
+    WirePlan,
+    axis_split,
+    hier_inter_savings,
+    mesh_axis_sizes,
+    plan_wire,
+    reduce_wire,
+    schedule_for_bucket,
+    zero_residuals_wire,
+)
 
 __all__ = [
-    "Bucket", "BucketPlan", "CODECS", "DEFAULT_BUCKET_BYTES",
-    "DEFAULT_MAX_BUCKETS", "LeafSlot", "WireConfig", "codec_of_dtype",
-    "flatten_to_buckets", "make_plan", "plan_of_tree", "reduce_buckets",
-    "resolve_wire", "unflatten_from_buckets",
+    "AxisSplit", "Bucket", "BucketPlan", "CODECS", "DEFAULT_BUCKET_BYTES",
+    "DEFAULT_MAX_BUCKETS", "GRAD_SCHEDULES", "LeafSlot",
+    "MIN_HIER_INTER_SAVINGS", "WireConfig", "WirePlan", "axis_split",
+    "codec_of_dtype", "flatten_to_buckets", "hier_inter_savings",
+    "make_plan", "mesh_axis_sizes", "plan_of_tree", "plan_wire",
+    "reduce_buckets", "reduce_wire", "resolve_wire", "schedule_for_bucket",
+    "unflatten_from_buckets", "uses_error_feedback", "zero_residuals_wire",
 ]

@@ -15,6 +15,7 @@ from ._topology import FAKE_NODE_SIZE_ENV, Topology
 from .variants import (
     DummyCommunicator,
     FlatCommunicator,
+    HierarchicalCommunicator,
     NaiveCommunicator,
     PureNcclCommunicator,
     SingleNodeCommunicator,
@@ -24,6 +25,7 @@ _COMMUNICATORS = {
     "tpu": PureNcclCommunicator,
     "pure_nccl": PureNcclCommunicator,
     "flat": FlatCommunicator,
+    "hierarchical": HierarchicalCommunicator,
     "single_node": SingleNodeCommunicator,
     "naive": NaiveCommunicator,
     "dummy": DummyCommunicator,
@@ -32,8 +34,6 @@ _COMMUNICATORS = {
 # names of the JAX package not ported yet, and the ROADMAP item that
 # brings each
 _WAITING = {
-    "hierarchical": "Queue 1 'MNBN and the hierarchical communicator' "
-                    "(intra/inter subgroups)",
     "two_dimensional": "Queue 1 'Communicators, tier 2' (2-D "
                        "factorisation)",
     "non_cuda_aware": "Queue 1 'Communicators, tier 2' (host-staged "
@@ -46,7 +46,7 @@ _WAITING = {
 def create_communicator(communicator_name: str = "pure_nccl",
                         allreduce_grad_dtype=None) -> CommunicatorBase:
     """Create a communicator by name: ``pure_nccl`` (default), ``tpu``,
-    ``flat``, ``single_node``, ``naive`` or ``dummy``.
+    ``flat``, ``hierarchical``, ``single_node``, ``naive`` or ``dummy``.
 
     ``allreduce_grad_dtype``: optional reduced precision for the
     gradient all-reduce (``bfloat16``/``float16``, torch or numpy), as
@@ -71,6 +71,7 @@ __all__ = [
     "DummyCommunicator",
     "FAKE_NODE_SIZE_ENV",
     "FlatCommunicator",
+    "HierarchicalCommunicator",
     "NaiveCommunicator",
     "PureNcclCommunicator",
     "SingleNodeCommunicator",

@@ -122,6 +122,25 @@ class CommunicatorBase:
         return self._topology.inter_size
 
     @property
+    def mesh_shape(self) -> dict:
+        """``{axis name: size}`` of the sync axes the gradient wire plans
+        against, named as the JAX package's mesh names them: one flat
+        axis ``"mn"`` over every rank (``XlaCommunicatorBase._build_mesh``),
+        so ``comm_wire.plan_wire`` plans every bucket ``flat`` and hashes
+        as the reference's flat mesh does."""
+        return {"mn": self._size}
+
+    @property
+    def axis_names(self) -> tuple:
+        return tuple(self.mesh_shape)
+
+    @property
+    def wire_groups(self):
+        """The ``(intra, inter)`` process groups of a multi-hop schedule,
+        or None (a flat communicator stages nothing)."""
+        return None
+
+    @property
     def backend(self) -> str:
         return str(dist.get_backend(self._group))
 

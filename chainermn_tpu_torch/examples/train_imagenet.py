@@ -3,7 +3,8 @@
 ``examples/imagenet/train_imagenet.py`` (ChainerMN's flagship
 data-parallel workload: scatter_dataset -> multi-node optimizer ->
 Trainer, with the BatchNorm running statistics mean-reduced over the
-ranks after every update).
+ranks after every update; ``--mnbn`` synchronizes the BatchNorms'
+batch statistics over the ranks instead).
 
 Without ``--npz`` (a directory of ``train.npz``/``val.npz`` with arrays
 ``x`` (NHWC) and ``y``) it trains on an in-memory synthetic set of the
@@ -12,6 +13,8 @@ permutes them once.
 
     python -m chainermn_tpu_torch.examples.train_imagenet --arch resnet50
     torchrun --nproc_per_node 4 -m chainermn_tpu_torch.examples.train_imagenet
+    python -m chainermn_tpu_torch.examples.train_imagenet --mnbn \
+        --communicator hierarchical
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from chainermn_tpu_torch import models
 from chainermn_tpu_torch.examples._world import finish_world, init_world
 from chainermn_tpu_torch.extensions import Evaluator
 from chainermn_tpu_torch.iterators import EpochIterator, SerialIterator
+from chainermn_tpu_torch.links import create_mnbn_model
 from chainermn_tpu_torch.models import flax_ordered_parameters
 from chainermn_tpu_torch.ops.losses import accuracy, softmax_cross_entropy
 from chainermn_tpu_torch.training import Trainer, Updater
@@ -65,7 +69,7 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="cuda (this rank's card) or cpu (gloo)")
     p.add_argument("--mnbn", action="store_true",
-                   help="synchronized BatchNorm (not ported)")
+                   help="synchronized BatchNorm over the communicator")
     p.add_argument("--native-loader", action="store_true",
                    help="the C++ threaded loader (not ported)")
     p.add_argument("--checkpoint", default=None,
@@ -75,7 +79,6 @@ def parser() -> argparse.ArgumentParser:
 
 def _refuse(args) -> None:
     waiting = {
-        "mnbn": "'MNBN and the hierarchical communicator'",
         "native_loader": "'Native input path'",
         "checkpoint": "'Checkpoints and the input pipeline'",
     }
@@ -124,6 +127,10 @@ def main(argv=None) -> list:
         train_it = SerialIterator(train, batch, shuffle=True, seed=1)
 
         model = ARCHS[args.arch](num_classes=args.num_classes).to(device)
+        if args.mnbn:
+            # evaluation reads the running statistics and communicates
+            # nothing
+            model = create_mnbn_model(model, comm)
         comm.bcast_data(model)
         # the JAX step's tree is {"params", "batch_stats"}: the running
         # statistics ride the wire as zero-gradient leaves, and their

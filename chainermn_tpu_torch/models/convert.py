@@ -72,17 +72,15 @@ def mlp_leaves() -> List[Leaf]:
     return sorted(leaves, key=lambda leaf: leaf.path)
 
 
-# a ResNet block's flax submodules (numbered by creation order) -> the
-# port's attribute names
-_BLOCK_SUBS = {
-    "Bottleneck": {"Conv_0": "conv1", "BatchNorm_0": "bn1", "Conv_1": "conv2",
-                   "BatchNorm_1": "bn2", "Conv_2": "conv3",
-                   "BatchNorm_2": "bn3", "Conv_3": "proj",
-                   "BatchNorm_3": "proj_bn"},
-    "BasicBlock": {"Conv_0": "conv1", "BatchNorm_0": "bn1", "Conv_1": "conv2",
-                   "BatchNorm_1": "bn2", "Conv_2": "proj",
-                   "BatchNorm_2": "proj_bn"},
-}
+# a ResNet block's flax submodules, numbered by creation order within
+# their kind -> the port's attribute names
+_BLOCK_CONVS = {"Bottleneck": ("conv1", "conv2", "conv3", "proj"),
+                "BasicBlock": ("conv1", "conv2", "proj")}
+_BLOCK_NORMS = {"Bottleneck": ("bn1", "bn2", "bn3", "proj_bn"),
+                "BasicBlock": ("bn1", "bn2", "proj_bn")}
+#: flax's names of a ResNet's normalization modules: the plain BatchNorm
+#: and the synchronized one of ``create_mnbn_model`` (its class name)
+NORM_NAMES = ("BatchNorm", "MultiNodeBatchNormalization")
 _BN_LEAVES = (("params", "scale", "weight"), ("params", "bias", "bias"),
               ("batch_stats", "mean", "running_mean"),
               ("batch_stats", "var", "running_var"))
@@ -98,32 +96,48 @@ def _resnet_leaf(path: Tuple[str, ...]) -> Leaf:
         return Leaf(path, f"head.{'weight' if name == 'kernel' else 'bias'}",
                     DENSE if name == "kernel" else AS_IS)
     bn = {f: p for _, f, p in _BN_LEAVES}
-    if mods == ("BatchNorm_0",):
+    if len(mods) == 1 and mods[0].rsplit("_", 1)[0] in NORM_NAMES:
         return Leaf(path, f"bn_init.{bn[name]}", AS_IS)
     cls, k = mods[0].rsplit("_", 1)
-    sub = _BLOCK_SUBS[cls][mods[1]]
-    if mods[1].startswith("Conv"):
-        return Leaf(path, f"blocks.{k}.{sub}.weight", CONV)
-    return Leaf(path, f"blocks.{k}.{sub}.{bn[name]}", AS_IS)
+    kind, j = mods[1].rsplit("_", 1)
+    if kind == "Conv":
+        return Leaf(path, f"blocks.{k}.{_BLOCK_CONVS[cls][int(j)]}.weight",
+                    CONV)
+    if kind not in NORM_NAMES:
+        raise KeyError(f"no port key for the flax path {path}")
+    return Leaf(path, f"blocks.{k}.{_BLOCK_NORMS[cls][int(j)]}.{bn[name]}",
+                AS_IS)
+
+
+def _norm_name(model: nn.Module) -> str:
+    """The flax name of the model's normalization modules."""
+    name = type(model.bn_init).__name__
+    if name not in NORM_NAMES:
+        raise TypeError(f"no flax leaf table for a ResNet normalized by "
+                        f"{name}; one of {NORM_NAMES}")
+    return name
 
 
 def resnet_leaves(model: nn.Module) -> List[Leaf]:
     """Every parameter and running statistic of a port ``ResNet``, in
     the flax order of ``{"params", "batch_stats"}`` (``batch_stats``
-    sorts first)."""
+    sorts first).  The order follows the normalization's flax name:
+    ``BatchNorm_k`` sorts before a block's ``Conv_k``,
+    ``MultiNodeBatchNormalization_k`` after it."""
+    norm = _norm_name(model)
     paths = [("params", "conv_init", "kernel"),
              ("params", "Dense_0", "kernel"), ("params", "Dense_0", "bias")]
-    paths += [(coll, "BatchNorm_0", f) for coll, f, _ in _BN_LEAVES]
+    paths += [(coll, f"{norm}_0", f) for coll, f, _ in _BN_LEAVES]
     cls = model.block_cls.__name__
     for k, blk in enumerate(model.blocks):
-        for flax_sub, sub in _BLOCK_SUBS[cls].items():
-            if getattr(blk, sub) is None:
-                continue
-            mod = f"{cls}_{k}"
-            if flax_sub.startswith("Conv"):
-                paths.append(("params", mod, flax_sub, "kernel"))
-            else:
-                paths += [(coll, mod, flax_sub, f) for coll, f, _ in _BN_LEAVES]
+        mod = f"{cls}_{k}"
+        for j, sub in enumerate(_BLOCK_CONVS[cls]):
+            if getattr(blk, sub) is not None:
+                paths.append(("params", mod, f"Conv_{j}", "kernel"))
+        for j, sub in enumerate(_BLOCK_NORMS[cls]):
+            if getattr(blk, sub) is not None:
+                paths += [(coll, mod, f"{norm}_{j}", f)
+                          for coll, f, _ in _BN_LEAVES]
     return sorted((_resnet_leaf(p) for p in paths),
                   key=lambda leaf: leaf.path)
 
@@ -216,7 +230,9 @@ def resnet_params_from_flax(variables) -> Dict[str, torch.Tensor]:
     """Map ``{'params': ..., 'batch_stats': ...}`` of a JAX ``ResNet``
     (arrays as numpy) onto the port's ``ResNet`` ``state_dict``: every
     parameter and running statistic, the zero-initialised scales of the
-    blocks' last BatchNorms included."""
+    blocks' last BatchNorms included.  A tree of the synchronized model
+    (``create_mnbn_model``, modules named
+    ``MultiNodeBatchNormalization_k``) maps onto the same keys."""
     out: Dict[str, torch.Tensor] = {}
 
     def walk(tree, path):

@@ -10,11 +10,15 @@ the forward updates are mean-reduced over the ranks after the update.
 
 The wrapped object is a ``torch.optim`` optimizer.  The gradient sync
 plans the optimizer's parameters, in their order, into the wire's
-buckets (``comm_wire.planner``) and reduces each bucket with one
-all-reduce (``comm_wire.codecs.reduce_buckets``), then writes the means
-back into ``.grad``.  Build the optimizer over a TransformerLM's
-parameters in flax's order (``models.convert.flax_ordered_parameters``)
-and its buckets have the JAX plan's layout.
+buckets and a schedule per bucket over the communicator's sync axes
+(``comm_wire.schedules.plan_wire``), reduces them
+(``comm_wire.schedules.reduce_wire``: one all-reduce per ``flat``
+bucket, the intra/inter/intra triple per ``hier_rs_ag`` bucket), then
+writes the means back into ``.grad``.  Build the optimizer over a
+model's parameters in flax's order
+(``models.convert.flax_ordered_parameters``) and its buckets have the
+JAX plan's layout.  With error feedback the wire's residual is carried
+beside the optimizer (``MultiNodeOptimizer.wire_residual``).
 
 ZeRO, double buffering, overlap, autotuning, ``accum_steps`` and remat
 wait (ROADMAP Queue 1, "Optimizer, tier 2").
@@ -29,10 +33,12 @@ import torch
 
 from .comm_wire import (
     flatten_to_buckets,
-    plan_of_tree,
-    reduce_buckets,
+    plan_wire,
+    reduce_wire,
     resolve_wire,
     unflatten_from_buckets,
+    uses_error_feedback,
+    zero_residuals_wire,
 )
 from .extensions.allreduce_persistent import allreduce_mean_
 from .resilience.errors import StepDivergedError
@@ -45,23 +51,27 @@ def _params_of(optimizer: torch.optim.Optimizer) -> List[torch.nn.Parameter]:
 
 
 @torch.no_grad()
-def _sync_grads(params, comm, wire) -> None:
+def _sync_grads(params, comm, wire, residuals=None) -> list:
     """Mean every parameter's gradient over the communicator through the
-    bucketed wire, in place: flatten the gradients into the plan's
-    buckets, one all-reduce per bucket, unflatten into ``.grad``.  A
-    parameter without a gradient contributes zeros (every rank must
-    send the same buckets)."""
+    scheduled wire, in place: flatten the gradients into the plan's
+    buckets, reduce each under its schedule, unflatten into ``.grad``.
+    A parameter without a gradient contributes zeros (every rank must
+    send the same buckets).  Returns the new error-feedback residuals
+    (``[]`` without error feedback)."""
     params = list(params)
     grads = [p.grad if p.grad is not None else torch.zeros_like(p)
              for p in params]
-    plan = plan_of_tree(grads, wire.bucket_bytes, wire.max_buckets)
-    means = reduce_buckets(flatten_to_buckets(plan, grads), comm.size, wire,
-                           group=getattr(comm, "_group", None))
-    for p, g in zip(params, unflatten_from_buckets(plan, means)):
+    wplan = plan_wire(grads, wire, comm)
+    means, new_res = reduce_wire(
+        flatten_to_buckets(wplan.plan, grads), wplan, comm.size, wire,
+        residuals, group=getattr(comm, "_group", None),
+        groups=comm.wire_groups)
+    for p, g in zip(params, unflatten_from_buckets(wplan.plan, means)):
         if p.grad is None:
             p.grad = g.clone()
         else:
             p.grad.copy_(g)
+    return new_res
 
 
 def _all_finite(params, comm) -> bool:
@@ -85,6 +95,14 @@ class MultiNodeOptimizer:
     On its first ``step`` (or the first step of ``build_train_step``) it
     broadcasts rank 0's parameters to every rank, ChainerMN's
     ``bcast_data`` on the first update.
+
+    ``wire_residual``: the error-feedback carry of a wire with
+    ``error_feedback`` (``[]`` otherwise), zeros at first, on the
+    parameters' device: one tensor per bucket, the full bucket for a
+    ``flat`` bucket and the shard for a ``hier_rs_ag`` one
+    (``comm_wire.zero_residuals_wire``).  Each sync replaces it; a step
+    that the non-finite guard skips does not sync, so it keeps the
+    residual it found.  It is part of ``state_dict``.
     """
 
     def __init__(self, actual_optimizer: torch.optim.Optimizer, comm,
@@ -93,6 +111,11 @@ class MultiNodeOptimizer:
         self.communicator = comm
         self.wire = resolve_wire(wire, comm)
         self._needs_bcast = True
+        self.wire_residual: List[torch.Tensor] = []
+        if uses_error_feedback(self.wire):
+            params = self.params
+            self.wire_residual = zero_residuals_wire(
+                self.wire_plan(), params[0].device if params else None)
 
     def __getattr__(self, name):
         # only reached for names this class does not define
@@ -104,9 +127,9 @@ class MultiNodeOptimizer:
         return _params_of(self.actual_optimizer)
 
     def wire_plan(self):
-        """The bucket plan the sync uses for these parameters."""
-        return plan_of_tree(self.params, self.wire.bucket_bytes,
-                            self.wire.max_buckets)
+        """The scheduled plan (``comm_wire.WirePlan``) the sync uses for
+        these parameters over the communicator's sync axes."""
+        return plan_wire(self.params, self.wire, self.communicator)
 
     @torch.no_grad()
     def bcast_once(self) -> None:
@@ -118,7 +141,22 @@ class MultiNodeOptimizer:
 
     def sync_grads(self) -> None:
         if not self.communicator.no_exchange:
-            _sync_grads(self.params, self.communicator, self.wire)
+            self.wire_residual = _sync_grads(
+                self.params, self.communicator, self.wire, self.wire_residual)
+
+    def state_dict(self) -> dict:
+        """The wrapped optimizer's state, and the wire's residual."""
+        state = self.actual_optimizer.state_dict()
+        state["wire_residual"] = [r.clone() for r in self.wire_residual]
+        return state
+
+    def load_state_dict(self, state: dict) -> None:
+        state = dict(state)
+        residual = state.pop("wire_residual", [])
+        self.actual_optimizer.load_state_dict(state)
+        self.wire_residual = [
+            r.to(mine.device, mine.dtype).clone()
+            for r, mine in zip(residual, self.wire_residual)]
 
     def step(self, closure: Optional[Callable] = None):
         """Broadcast (first call), sync the gradients, then the wrapped
@@ -135,8 +173,12 @@ def create_multi_node_optimizer(actual_optimizer: torch.optim.Optimizer,
 
     ``wire``: ``"auto"`` (default) is the bucketed wire with the codec
     of the communicator's ``allreduce_grad_dtype`` (None -> ``none``,
-    bfloat16 -> ``bf16``, float16 -> ``f16``); a codec name or a
-    ``comm_wire.WireConfig`` selects explicitly.
+    bfloat16 -> ``bf16``, float16 -> ``f16``); a codec name (``int8``
+    too) or a ``comm_wire.WireConfig`` (codec, bucket knobs,
+    ``error_feedback``, ``schedule``) selects explicitly.  Over the
+    ``hierarchical`` communicator each bucket whose inter-node saving
+    clears the planner's threshold is reduced in three hops, with the
+    codec on the inter-node hop only (``comm_wire.schedules``).
     """
     return MultiNodeOptimizer(actual_optimizer, communicator, wire=wire)
 
@@ -221,7 +263,8 @@ def build_train_step(comm, loss_fn: Callable, optimizer: MultiNodeOptimizer,
 
     ``nonfinite``: ``None`` (off), ``"skip"`` (an agreed no-op step when
     any rank's gradients are non-finite; ``model_state`` is put back as
-    it was before the forward), ``"abort"`` (raise
+    it was before the forward, and the wire's error-feedback residual
+    stays as it was, since the sync does not run), ``"abort"`` (raise
     :class:`~chainermn_tpu_torch.resilience.StepDivergedError` without
     updating) or ``"warn"`` (apply anyway, with a warning).  The flag is
     agreed by a min-reduce over every rank.

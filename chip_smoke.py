@@ -50,7 +50,19 @@ Run from the repository root, with one card.  Phases:
    just before the timed steps and read just after (2 launches a bucket
    a step); a ``torch.profiler`` step; the same step on the codec-
    ``none`` wire;
-9. the Trainer path: the MNIST example's twin (MLP, bf16 wire) through
+9. the MNBN image path: the same ResNet-50 with synchronized BatchNorm
+   through ``create_communicator("hierarchical",
+   allreduce_grad_dtype=bfloat16)`` -> ``create_mnbn_model`` ->
+   ``create_multi_node_optimizer(SGD momentum)`` -> ``build_train_step``
+   with the MNBN running statistics, K1's count and the MNBN all-reduce
+   count set to 0 just before the timed steps and read just after (2
+   launches a bucket a step; 53 + 53 all-reduces a step); a
+   ``torch.profiler`` step; then ``WireConfig("int8",
+   error_feedback=True)`` (no K1 launch) and ``WireConfig("bf16",
+   error_feedback=True)`` (3 launches a bucket a step) for a few steps
+   each, with the residual's norm; one step's sync timed alone under
+   each codec;
+10. the Trainer path: the MNIST example's twin (MLP, bf16 wire) through
    ``Trainer`` + ``Evaluator`` + the reports for a few epochs, then the
    ImageNet example's twin with ResNet-50 for a few iterations, each
    with K1's count set to 0 just before and read just after.
@@ -1017,6 +1029,29 @@ def kernel_categories(kernels):
     return {k: tuple(v) for k, v in out.items()}
 
 
+def image_step_profile(tag, step, batch, median_ms):
+    """One profiled step: its device time, its idle share against the
+    unprofiled steps' median, its ten longest kernels and its device
+    time by kind, logged under ``tag``."""
+    busy, wall, n_kernels, kernels = profile_train_step(step, batch)
+    # the profiler's own cost per launch stretches the profiled step
+    # (thousands of launches), not the kernels: idle share against the
+    # unprofiled steps
+    idle = 1 - busy / median_ms
+    log(f"profile {tag} step: device busy {busy:.3f} ms in "
+        f"{n_kernels} kernel launches; the profiled step took {wall:.3f}"
+        f" ms on the host clock, the unprofiled ones {median_ms:.3f} ms "
+        f"(median): idle share {idle:.1%} of an unprofiled step")
+    for e in kernels[:10]:
+        log(f"  {e.self_device_time_total / 1e3:9.3f} ms x{e.count:<4d} "
+            f"{e.key[:90]}")
+    shares = kernel_categories(kernels)
+    log(f"profile {tag} step by kind: " + ", ".join(
+        f"{k} {ms:.3f} ms ({ms / busy:.1%}, {n} launches)"
+        for k, (ms, n) in shares.items()))
+    return busy, wall, idle, shares
+
+
 def resnet_train_phase():
     """The image main path: ResNet-50 at full width through
     create_communicator("pure_nccl", allreduce_grad_dtype=bf16) ->
@@ -1102,23 +1137,8 @@ def resnet_train_phase():
             f"median {again_ms:.3f} ms; bf16 - none = "
             f"{(median_ms + again_ms) / 2 - none_ms:+.3f} ms a step (medians)")
 
-        busy, wall, n_kernels, kernels = profile_train_step(step, batch)
-        # the profiler's own cost per launch stretches the profiled step
-        # (thousands of launches), not the kernels: idle share against
-        # the unprofiled steps
-        idle = 1 - busy / median_ms
-        log(f"profile resnet50 step: device busy {busy:.3f} ms in "
-            f"{n_kernels} kernel launches; the profiled step took {wall:.3f}"
-            f" ms on the host clock, the unprofiled ones {median_ms:.3f} ms "
-            f"(median): "
-            f"idle share {idle:.1%} of an unprofiled step")
-        for e in kernels[:10]:
-            log(f"  {e.self_device_time_total / 1e3:9.3f} ms x{e.count:<4d} "
-                f"{e.key[:90]}")
-        shares = kernel_categories(kernels)
-        log("profile resnet50 step by kind: " + ", ".join(
-            f"{k} {ms:.3f} ms ({ms / busy:.1%}, {n} launches)"
-            for k, (ms, n) in shares.items()))
+        busy, wall, idle, shares = image_step_profile("resnet50", step, batch,
+                                                      median_ms)
         return {"launches": launches, "steps": IMAGE_STEPS,
                 "buckets": plan.n_buckets, "losses": losses,
                 "step_ms": times, "images_per_s": ips,
@@ -1126,6 +1146,181 @@ def resnet_train_phase():
                 "profiled_step_ms": wall, "idle_share": idle,
                 "device_ms_by_kind": {k: v[0] for k, v in shares.items()},
                 "none_step_ms": times_none, "bf16_again_step_ms": times_again}
+    finally:
+        dist.destroy_process_group()
+
+
+# the int8 phase's steps (after one warm-up step)
+INT8_STEPS = 3
+
+
+def wire_ms(buckets, wire):
+    """Device ms of one step's gradient sync, ``reduce_buckets`` over
+    ``buckets`` with ``wire`` on the 1-rank group (at world 1 the
+    all-reduces move nothing: what is timed are the codec's legs), and
+    the means and residuals of one call."""
+    from chainermn_tpu_torch.comm_wire import reduce_buckets, uses_error_feedback
+
+    res = ([torch.zeros_like(b) for b in buckets]
+           if uses_error_feedback(wire) else None)
+    ms = event_ms(lambda: reduce_buckets(buckets, 1, wire, res), 10)
+    return ms, reduce_buckets(buckets, 1, wire, res)
+
+
+def mnbn_train_phase():
+    """The MNBN image path: ResNet-50 at full width through
+    create_communicator("hierarchical", allreduce_grad_dtype=bf16) ->
+    create_mnbn_model -> bcast_data -> create_multi_node_optimizer(SGD
+    momentum) -> build_train_step(model_state=MNBN running statistics)
+    on a 1-rank NCCL group: the bf16 wire (K1's count and the MNBN
+    all-reduce count set to 0 just before the timed steps and read just
+    after), a profiled step; then WireConfig("int8",
+    error_feedback=True) and WireConfig("bf16", error_feedback=True)
+    for a few steps each, counted the same way; and one step's wire
+    timed alone under each codec."""
+    import torch.distributed as dist
+
+    from chainermn_tpu_torch import (build_train_step, create_communicator,
+                                     create_multi_node_optimizer)
+    from chainermn_tpu_torch.comm_wire import WireConfig
+    from chainermn_tpu_torch.functions import allreduce_mean
+    from chainermn_tpu_torch.links import (MultiNodeBatchNormalization,
+                                           create_mnbn_model)
+    from chainermn_tpu_torch.models import ResNet50, flax_ordered_parameters
+    from chainermn_tpu_torch.ops.losses import softmax_cross_entropy
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        comm = create_communicator("hierarchical",
+                                   allreduce_grad_dtype=torch.bfloat16)
+        t0 = time.perf_counter()
+        model = create_mnbn_model(
+            ResNet50(num_classes=N_CLASSES).to(comm.device), comm)
+        n_norms = sum(isinstance(m, MultiNodeBatchNormalization)
+                      for m in model.modules())
+        check(n_norms == 53, f"{n_norms} synchronized BatchNorms, not 53")
+        comm.bcast_data(model)
+        leaves = [p for _, p in flax_ordered_parameters(model)]
+
+        def make_step(wire):
+            opt = create_multi_node_optimizer(
+                torch.optim.SGD(leaves, lr=0.1, momentum=0.9), comm, wire=wire)
+            step = build_train_step(
+                comm, lambda b: softmax_cross_entropy(model(b[0]), b[1]), opt,
+                model_state=list(model.buffers()))
+            return opt, step
+
+        opt, step = make_step("auto")
+        plan = opt.wire_plan()
+        check(opt.wire.codec == "bf16", f"wire {opt.wire.codec}, not bf16")
+        check(comm.mesh_shape == {"mn_inter": 1, "mn_intra": 1},
+              f"axes {comm.mesh_shape}")
+        check(set(plan.schedules) == {"flat"}, f"schedules {plan.schedules}")
+        batch = image_batch(comm.device)
+        log(f"mnbn resnet50: {n_norms} MultiNodeBatchNormalization, "
+            f"{len(leaves)} wire leaves; {comm!r}, backend {comm.backend}, "
+            f"axes {comm.mesh_shape}; wire {opt.wire.codec}, "
+            f"{plan.describe()}, plan_hash {plan.plan_hash()[:16]}; set up "
+            f"in {time.perf_counter() - t0:.1f}s")
+
+        for _ in range(IMAGE_WARMUP):
+            check(np.isfinite(float(step(batch)["loss"])),
+                  "MNBN warm-up loss not finite")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        # the main path: every count set to 0 just before, read just after
+        fcs.fused_cast_scale.launches = 0
+        allreduce_mean.calls = 0
+        losses, times = timed_steps(step, batch, IMAGE_STEPS)
+        launches = fcs.fused_cast_scale.launches
+        reduces = allreduce_mean.calls
+        peak = torch.cuda.max_memory_allocated()
+        check(launches == 2 * plan.n_buckets * IMAGE_STEPS,
+              f"MNBN fused_cast_scale launches {launches} != 2 x "
+              f"{plan.n_buckets} buckets x {IMAGE_STEPS} steps")
+        check(reduces == 2 * n_norms * IMAGE_STEPS,
+              f"MNBN all-reduces {reduces} != 2 x {n_norms} x {IMAGE_STEPS}")
+        check(all(np.isfinite(losses)), f"non-finite MNBN loss: {losses}")
+        median_ms = float(np.median(times))
+        ips = IMAGE_BATCH / (median_ms / 1e3)
+        log(f"mnbn resnet50 bf16 wire: {IMAGE_STEPS} steps of {IMAGE_BATCH} "
+            f"x {IMAGE}^2: losses {losses}; step ms "
+            f"{[round(t, 3) for t in times]} (median {median_ms:.3f}, mean "
+            f"{np.mean(times):.3f}); {ips:.1f} images/s; peak memory "
+            f"{peak / 2**30:.2f} GiB; fused_cast_scale launches {launches} = "
+            f"2 x {plan.n_buckets} buckets x {IMAGE_STEPS} steps; MNBN "
+            f"all-reduces {reduces} = ({n_norms} forward + {n_norms} "
+            f"backward) x {IMAGE_STEPS} steps")
+
+        busy, wall, idle, shares = image_step_profile("mnbn resnet50", step,
+                                                      batch, median_ms)
+
+        # the int8 wire with error feedback, then bf16 with error feedback
+        lossy = {}
+        for name, wire, k1_per_bucket in (
+                ("int8_ef", WireConfig("int8", error_feedback=True), 0),
+                ("bf16_ef", WireConfig("bf16", error_feedback=True), 3)):
+            opt_w, step_w = make_step(wire)
+            check(len(opt_w.wire_residual) == plan.n_buckets,
+                  f"{name}: {len(opt_w.wire_residual)} residuals")
+            check(np.isfinite(float(step_w(batch)["loss"])),
+                  f"{name} warm-up loss not finite")
+            torch.cuda.synchronize()
+            fcs.fused_cast_scale.launches = 0
+            allreduce_mean.calls = 0
+            w_losses, w_times = timed_steps(step_w, batch, INT8_STEPS)
+            w_launches = fcs.fused_cast_scale.launches
+            w_reduces = allreduce_mean.calls
+            check(w_launches == k1_per_bucket * plan.n_buckets * INT8_STEPS,
+                  f"{name} fused_cast_scale launches {w_launches} != "
+                  f"{k1_per_bucket} x {plan.n_buckets} x {INT8_STEPS}")
+            check(w_reduces == 2 * n_norms * INT8_STEPS,
+                  f"{name} MNBN all-reduces {w_reduces}")
+            check(all(np.isfinite(w_losses)), f"non-finite {name} loss")
+            norm = float(torch.sqrt(sum(
+                r.float().square().sum() for r in opt_w.wire_residual)))
+            check(np.isfinite(norm) and norm > 0,
+                  f"{name} residual norm {norm}")
+            lossy[name] = {"losses": w_losses, "step_ms": w_times,
+                           "launches": w_launches, "all_reduces": w_reduces,
+                           "residual_norm": norm}
+            log(f"mnbn resnet50 {name}: {INT8_STEPS} steps: losses "
+                f"{w_losses}; step ms {[round(t, 3) for t in w_times]} "
+                f"(median {np.median(w_times):.3f}); fused_cast_scale "
+                f"launches {w_launches} = {k1_per_bucket} x {plan.n_buckets} "
+                f"buckets x {INT8_STEPS}; MNBN all-reduces {w_reduces}; "
+                f"residual norm {norm:.6g}")
+            del opt_w, step_w
+
+        # one step's sync alone under each codec (device time)
+        grads = [torch.randn(b.size, device=comm.device) * 1e-3
+                 for b in plan.buckets]
+        sync = {}
+        for name, wire in (("bf16", WireConfig("bf16")),
+                           ("bf16_ef", WireConfig("bf16", error_feedback=True)),
+                           ("int8", WireConfig("int8")),
+                           ("int8_ef", WireConfig("int8",
+                                                  error_feedback=True)),
+                           ("none", WireConfig("none"))):
+            sync[name], (means, res) = wire_ms(grads, wire)
+            check(all(bool(torch.isfinite(m).all()) for m in means + res),
+                  f"non-finite {name} sync")
+        check(all(torch.equal(m, g) for m, g in zip(means, grads)),
+              "codec none at world 1 changed a gradient")
+        log("wire sync of one step's " + str(plan.n_buckets) + " buckets ("
+            + str(sum(b.size for b in plan.buckets)) + " fp32 elements), "
+            "device ms: " + ", ".join(f"{k} {v:.4f}" for k, v in sync.items()))
+        del grads
+        return {"n_norms": n_norms, "launches": launches,
+                "all_reduces": reduces, "steps": IMAGE_STEPS,
+                "buckets": plan.n_buckets, "plan_hash": plan.plan_hash(),
+                "losses": losses, "step_ms": times, "images_per_s": ips,
+                "peak_gib": peak / 2**30, "device_busy_ms": busy,
+                "profiled_step_ms": wall, "idle_share": idle,
+                "device_ms_by_kind": {k: v[0] for k, v in shares.items()},
+                "lossy_wires": lossy, "sync_ms": sync}
     finally:
         dist.destroy_process_group()
 
@@ -1310,11 +1505,20 @@ def main():
     cast = cast_kernel_phase([b.size for b in plan.buckets])
     image_path = resnet_train_phase()
     check(image_path["buckets"] == plan.n_buckets, "ResNet-50 plan drifted")
+    mnbn_path = mnbn_train_phase()
+    check(mnbn_path["buckets"] == plan.n_buckets, "MNBN ResNet-50 plan drifted")
     trainer_path = trainer_phase(plan.n_buckets)
 
     log("serve summary: " + json.dumps(serve_path))
     log("train summary: " + json.dumps(train_path))
     log("resnet50 summary: " + json.dumps(image_path))
+    log("mnbn resnet50 summary: " + json.dumps(mnbn_path))
+    log("resnet50 plain BatchNorm vs MNBN (median step ms, images/s, device "
+        "busy ms, idle share, peak GiB): "
+        + json.dumps({k: [p[k] if k != "step_ms" else float(np.median(p[k]))
+                          for p in (image_path, mnbn_path)]
+                      for k in ("step_ms", "images_per_s", "device_busy_ms",
+                                "idle_share", "peak_gib")}))
     log("trainer summary: " + json.dumps(trainer_path))
     log("flash_decode float32: " + json.dumps(kern[torch.float32]))
     log("flash attention float32: " + json.dumps(flash[torch.float32]))
@@ -1341,7 +1545,14 @@ def main():
         cast, "float32->bfloat16, bfloat16->float32"))
     records[-1].update(tolerance="bit-exact", per_step_ms=cast["per_step_ms"],
                        per_step_bound_ms=cast["per_step_bound_ms"],
-                       bucket_sizes=[b.size for b in plan.buckets])
+                       bucket_sizes=[b.size for b in plan.buckets],
+                       launches_by_path={
+                           "resnet50": image_path["launches"],
+                           "mnbn_resnet50_bf16": mnbn_path["launches"],
+                           "mnbn_resnet50_bf16_ef":
+                               mnbn_path["lossy_wires"]["bf16_ef"]["launches"],
+                           "mnbn_resnet50_int8_ef":
+                               mnbn_path["lossy_wires"]["int8_ef"]["launches"]})
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

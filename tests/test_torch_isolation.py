@@ -1,7 +1,9 @@
 """The port stands alone: no module of ``chainermn_tpu_torch`` and not
 ``chip_smoke.py`` imports JAX, flax, optax or the JAX package, importing
 the package loads no subpackage, and the serving, LM training and image
-training paths run with those modules made unimportable."""
+training paths (synchronized BatchNorm over the hierarchical
+communicator and the int8 wire with error feedback among them) run with
+those modules made unimportable."""
 
 import ast
 import os
@@ -87,6 +89,26 @@ data = chainermn_tpu_torch.scatter_dataset(
     np.arange(64).reshape(4, 16) % 64, comm, shuffle=True, seed=0)
 toks = torch.from_numpy(np.stack([data[i] for i in range(2)]))
 assert np.isfinite(float(step(toks)["loss"]))
+
+from chainermn_tpu_torch.comm_wire import WireConfig
+from chainermn_tpu_torch.links import create_mnbn_model
+from chainermn_tpu_torch.models import ResNet18
+from chainermn_tpu_torch.ops.losses import softmax_cross_entropy
+
+hier = chainermn_tpu_torch.create_communicator("hierarchical")
+net = create_mnbn_model(ResNet18(num_classes=4, num_filters=4,
+                                 dtype=torch.float32), hier)
+opt = chainermn_tpu_torch.create_multi_node_optimizer(
+    torch.optim.SGD([p for _, p in flax_ordered_parameters(net)], lr=0.1,
+                    momentum=0.9),
+    hier, wire=WireConfig("int8", error_feedback=True))
+step = chainermn_tpu_torch.build_train_step(
+    hier, lambda b: softmax_cross_entropy(net(b[0]), b[1]), opt,
+    model_state=list(net.buffers()))
+assert np.isfinite(float(step((torch.randn(2, 16, 16, 3),
+                               torch.tensor([0, 1])))["loss"]))
+assert opt.wire_residual and hier.mesh_shape == {{"mn_inter": 1,
+                                                  "mn_intra": 1}}
 dist.destroy_process_group()
 
 from chainermn_tpu_torch.examples import train_imagenet, train_mnist
@@ -99,6 +121,12 @@ log = train_imagenet.main(["--device", "cpu", "--arch", "resnet18",
                            "--image-size", "32", "--n-train", "8",
                            "--n-val", "8", "--batchsize", "8",
                            "--num-classes", "10"])
+assert np.isfinite(log[-1]["val/loss"])
+log = train_imagenet.main(["--device", "cpu", "--arch", "resnet18",
+                           "--image-size", "32", "--n-train", "8",
+                           "--n-val", "8", "--batchsize", "8",
+                           "--num-classes", "10", "--mnbn",
+                           "--communicator", "hierarchical"])
 assert np.isfinite(log[-1]["val/loss"])
 assert not any(m.split(".")[0] in BANNED for m in sys.modules)
 print("ok")

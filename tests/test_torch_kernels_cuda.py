@@ -490,7 +490,7 @@ def test_reduce_buckets_launches_fused_cast_scale():
         for codec, launches in (("none", 0), ("f32", 0), ("bf16", 6),
                                 ("f16", 6)):
             n0 = fused_cast_scale.launches
-            means = reduce_buckets(buckets, 1, WireConfig(codec=codec))
+            means, _ = reduce_buckets(buckets, 1, WireConfig(codec=codec))
             torch.cuda.synchronize()
             assert fused_cast_scale.launches - n0 == launches, codec
             for m, b in zip(means, buckets):
@@ -499,5 +499,147 @@ def test_reduce_buckets_launches_fused_cast_scale():
                 want = cast_scale_reference(
                     cast_scale_reference(b, 1.0, wire), 1.0, torch.float32)
                 assert same_bits(m, want), codec
+    finally:
+        dist.destroy_process_group()
+
+
+def _mixed_world():
+    """A world of one whose default group takes CPU tensors (gloo) and
+    card tensors (NCCL), so one call runs on both."""
+    import torch.distributed as dist
+
+    dist.init_process_group("cpu:gloo,cuda:nccl", store=dist.HashStore(),
+                            rank=0, world_size=1)
+
+
+@pytest.mark.cuda
+def test_reduce_buckets_int8_and_error_feedback_on_card_equal_cpu():
+    """The int8 codec (with and without error feedback, with a carried
+    residual) and the bf16 codec with error feedback, on card tensors
+    over a 1-rank NCCL group, bit-equal to the same call on CPU tensors
+    (tolerance 0: the same fp32 divides, round-half-even and integer
+    sum; a CUDA divide by a Python number would multiply by its
+    reciprocal, and 1/127 is inexact); a zero bucket stays zero; the
+    mean divide at world 3 is a divide too."""
+    _need_card()
+    import torch.distributed as dist
+
+    from chainermn_tpu_torch.comm_wire import WireConfig, reduce_buckets
+
+    g = torch.Generator().manual_seed(7)
+    buckets = [torch.randn(n, generator=g) * s
+               for n, s in ((1000, 1e-3), (4099, 1.0), (64, 0.0))]
+    buckets.append((torch.randn(257, generator=g) * 10).bfloat16())
+    carry = [(torch.randn(b.numel(), generator=g) * 1e-4).to(b.dtype)
+             for b in buckets]
+    _mixed_world()
+    try:
+        for codec, ef, with_carry in (("int8", False, False),
+                                      ("int8", True, False),
+                                      ("int8", True, True),
+                                      ("bf16", True, True)):
+            cfg = WireConfig(codec, error_feedback=ef)
+            res_cpu = carry if with_carry else None
+            res_card = [r.cuda() for r in carry] if with_carry else None
+            m_cpu, r_cpu = reduce_buckets(buckets, 1, cfg, res_cpu)
+            m_card, r_card = reduce_buckets([b.cuda() for b in buckets], 1,
+                                            cfg, res_card)
+            for a, b in zip(m_card + r_card, m_cpu + r_cpu):
+                assert a.device.type == "cuda" and a.dtype == b.dtype
+                assert torch.equal(a.cpu(), b), (codec, ef, with_carry)
+            assert len(r_card) == (len(buckets) if ef else 0)
+            assert with_carry or not m_card[2].any()
+        from chainermn_tpu_torch.comm_wire.codecs import _div
+
+        x = torch.randn(4099, generator=g)
+        assert torch.equal(_div(x.cuda(), 3).cpu(), x / 3)
+        assert torch.equal(_div(x.cuda(), 127).cpu(), x / 127.0)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_error_feedback_launch_counts():
+    """K1 launches a step: a cast codec twice a bucket whose dtype
+    differs from the wire's, three times with error feedback (the
+    residual casts the local payload back); int8 never."""
+    _need_card()
+    import torch.distributed as dist
+
+    from chainermn_tpu_torch.comm_wire import WireConfig, reduce_buckets
+    from chainermn_tpu_torch.ops.fused_cast_scale import fused_cast_scale
+
+    buckets = [torch.randn(n, device="cuda") for n in (1000, 257, 64)]
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        for cfg, launches in ((WireConfig("bf16"), 6),
+                              (WireConfig("bf16", error_feedback=True), 9),
+                              (WireConfig("f16", error_feedback=True), 9),
+                              (WireConfig("int8", error_feedback=True), 0)):
+            n0 = fused_cast_scale.launches
+            reduce_buckets(buckets, 1, cfg)
+            torch.cuda.synchronize()
+            assert fused_cast_scale.launches - n0 == launches, cfg
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mnbn_on_card_equals_cpu(dtype):
+    """MultiNodeBatchNormalization over a 1-rank hierarchical
+    communicator on the card against the same layer on the CPU: the
+    output, the running statistics and the input and parameter
+    gradients within fp32 rounding (rtol 1e-4, atol 1e-5 of the largest
+    entry: the card sums the statistics in another order); bf16 outputs
+    within two bf16 steps.  Two all-reduces a training step, none in
+    evaluation."""
+    _need_card()
+    import torch.distributed as dist
+
+    import chainermn_tpu_torch as cmn
+    from chainermn_tpu_torch.functions import allreduce_mean
+    from chainermn_tpu_torch.links import MultiNodeBatchNormalization
+
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(8, 16, 14, 14, generator=g) * 2 + 3
+    c = torch.randn(8, 16, 14, 14, generator=g)
+    dt = getattr(torch, dtype)
+    _mixed_world()
+    try:
+        comm = cmn.create_communicator("hierarchical")
+        out = {}
+        for device in ("cpu", "cuda"):
+            layer = MultiNodeBatchNormalization(16, comm, dtype=dt).to(device)
+            with torch.no_grad():
+                layer.weight.copy_(torch.linspace(0.5, 1.5, 16))
+                layer.bias.copy_(torch.linspace(-0.2, 0.2, 16))
+            xd = x.to(device, dt).clone().requires_grad_()
+            n0 = allreduce_mean.calls
+            y = layer(xd)
+            (y.float() * c.to(device)).sum().backward()
+            assert allreduce_mean.calls - n0 == 2
+            layer.eval()
+            with torch.no_grad():
+                layer(xd)
+            assert allreduce_mean.calls - n0 == 2
+            out[device] = [t.detach().float().cpu() for t in (
+                y, layer.running_mean, layer.running_var, xd.grad,
+                layer.weight.grad, layer.bias.grad)]
+        names = ("y", "running_mean", "running_var", "dx", "dweight",
+                 "dbias")
+        for name, a, b in zip(names, out["cuda"], out["cpu"]):
+            if name == "y" and dtype == "bfloat16":
+                step = 2.0 ** -7 * b.abs().clamp_min(2.0 ** -126)
+                assert ((a - b).abs() <= 2 * step).all(), name
+            elif name in ("y", "running_mean", "running_var"):
+                torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5,
+                                           msg=name)
+            else:
+                torch.testing.assert_close(
+                    a, b, rtol=1e-4 if dtype == "float32" else 2e-2,
+                    atol=(1e-4 if dtype == "float32" else 2e-2)
+                    * float(b.abs().max()), msg=name)
     finally:
         dist.destroy_process_group()

@@ -208,7 +208,7 @@ def test_unported_paths_raise_naming_roadmap():
         trainer.run(max_restarts=1)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Trainer.run_elastic(lambda comm: None)
-    for flags in (["--mnbn"], ["--native-loader"], ["--checkpoint", "c"],
+    for flags in (["--native-loader"], ["--checkpoint", "c"],
                   ["--arch", "alex"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             train_imagenet.main(flags + ["--device", "cpu"])

@@ -184,7 +184,7 @@ def wire_worker(rank, world_size, buckets):
     out = {"calls": {}}
     for codec in ("none", "f32", "bf16", "f16"):
         calls.clear()
-        means = reduce_buckets(mine, world_size, WireConfig(codec=codec))
+        means, _ = reduce_buckets(mine, world_size, WireConfig(codec=codec))
         out[codec] = [(m.float().numpy(), str(m.dtype)) for m in means]
         out["calls"][codec] = list(calls)
     return out
@@ -235,7 +235,7 @@ def training_worker(rank, world_size, cfg, state, dataset, steps, dtype):
         "losses": losses,
         "params": {k: v.detach().float().numpy().copy()
                    for k, v in lm.state_dict().items()},
-        "plan_hash": opt.wire_plan().plan_hash(),
+        "plan_hash": opt.wire_plan().plan.plan_hash(),
     }
 
     # the non-finite guard: rank 1 alone sees a NaN loss; both ranks
@@ -388,6 +388,284 @@ def image_dp_worker(rank, world_size, arch, variables, data, steps, lr,
     out["persistent"] = sorted({float(b.flatten()[0])
                                 for b in model.buffers()})
     return out
+
+
+def codec_worker(rank, world_size, buckets, residuals, cases, comm_name="",
+                 env=None, wire_kw=None):
+    """``reduce_buckets`` (``comm_name`` empty) or, over that
+    communicator, ``reduce_wire`` under ``plan_wire`` of the buckets as
+    leaves (``wire_kw``: the plan's knobs), of this rank's row of each
+    bucket, for each ``(codec, error feedback, carry the given
+    residuals)`` case; and the all-reduces each case issued (dtype,
+    elements, sum or max)."""
+    os.environ.update(env or {})
+    from chainermn_tpu_torch.comm_wire import (
+        WireConfig, plan_wire, reduce_buckets, reduce_wire)
+
+    calls = []
+    real = dist.all_reduce
+
+    def counting(t, op=dist.ReduceOp.SUM, group=None, async_op=False):
+        calls.append((str(t.dtype).split(".")[-1], t.numel(),
+                      "max" if op == dist.ReduceOp.MAX else "sum"))
+        return real(t, op=op, group=group, async_op=async_op)
+
+    mine = [b[rank].clone() for b in buckets]
+    carry = [r[rank].clone() for r in residuals]
+    out = {}
+    comm = None
+    if comm_name:
+        import chainermn_tpu_torch as cmn
+
+        comm = cmn.create_communicator(comm_name)
+        out["mesh_shape"] = comm.mesh_shape
+    dist.all_reduce = counting
+    try:
+        for codec, ef, with_carry in cases:
+            calls.clear()
+            cfg = WireConfig(codec=codec, error_feedback=ef,
+                             **(wire_kw or {}))
+            res = carry if with_carry else None
+            if comm is None:
+                means, new = reduce_buckets(mine, world_size, cfg, res)
+            else:
+                wplan = plan_wire(mine, cfg, comm)
+                means, new = reduce_wire(mine, wplan, world_size, cfg, res,
+                                         groups=comm.wire_groups)
+                out["plan"] = (wplan.plan_hash(), wplan.schedules)
+            out[(codec, ef, with_carry)] = {
+                "means": [(m.float().numpy(), str(m.dtype)) for m in means],
+                "residuals": [(r.float().numpy(), str(r.dtype))
+                              for r in new],
+                "calls": list(calls)}
+    finally:
+        dist.all_reduce = real
+    return out
+
+
+class FlaxLayoutMLP(torch.nn.Module):
+    """The MNIST MLP's arithmetic (fp32) with its parameters in flax's
+    layout and order (``Dense_k`` bias, then its ``(in, out)`` kernel),
+    so that a bucket holds each value where the JAX package's does."""
+
+    def __init__(self, variables):
+        super().__init__()
+        p = variables["params"]
+        self.leaves = torch.nn.ParameterList(
+            torch.nn.Parameter(torch.from_numpy(np.array(p[f"Dense_{i}"][k],
+                                                         np.float32)))
+            for i in range(3) for k in ("bias", "kernel"))
+
+    def forward(self, x):
+        x = x.reshape(x.shape[0], -1)
+        for i in range(3):
+            b, w = self.leaves[2 * i], self.leaves[2 * i + 1]
+            x = x @ w + b
+            if i < 2:
+                x = torch.relu(x)
+        return x
+
+
+def hier_comm_worker(rank, world_size, env, x):
+    """The hierarchical communicator in this world: its rank model, sync
+    axes and subgroups, and its plain collectives beside the flat
+    communicator's; the communicators still waiting raise."""
+    import warnings
+
+    os.environ.update(env)
+    import chainermn_tpu_torch as cmn
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        hier = cmn.create_communicator("hierarchical")
+    flat = cmn.create_communicator("pure_nccl")
+    mine = torch.from_numpy(x[rank])
+    out = {"mesh_shape": hier.mesh_shape, "axis_names": hier.axis_names,
+           "flat_mesh_shape": flat.mesh_shape,
+           "intra": (hier.intra_rank, hier.intra_size),
+           "inter": (hier.inter_rank, hier.inter_size),
+           "warnings": [str(w.message) for w in caught],
+           "groups": [dist.get_process_group_ranks(g)
+                      for g in hier.wire_groups]}
+    for name, comm in (("hier", hier), ("flat", flat)):
+        out[name] = {"sum": comm.allreduce(mine).numpy(),
+                     "mean": comm.allreduce(mine, "mean").numpy(),
+                     "max": comm.allreduce(mine, "max").numpy(),
+                     "bcast": comm.bcast(mine, root=world_size - 1).numpy(),
+                     "allgather": comm.allgather(mine).numpy()}
+    out["waiting"] = []
+    for name in ("two_dimensional", "non_cuda_aware", "hybrid", "mesh"):
+        try:
+            cmn.create_communicator(name)
+        except NotImplementedError as e:
+            out["waiting"].append(("ROADMAP" in str(e), name))
+    return out
+
+
+def ragged_worker(rank, world_size, env):
+    """The hierarchical communicator on a ragged topology: its axes, and
+    the plan of an explicit hier_rs_ag request, with the warnings."""
+    import warnings
+
+    os.environ.update(env)
+    import chainermn_tpu_torch as cmn
+    from chainermn_tpu_torch.comm_wire import WireConfig, plan_wire
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        comm = cmn.create_communicator("hierarchical")
+        plan = plan_wire([((20000,), "float32")],
+                         WireConfig("bf16", schedule="hier_rs_ag"), comm)
+    return (comm.mesh_shape, plan.schedules, plan.plan_hash(),
+            [str(w.message) for w in caught])
+
+
+def wire_train_worker(rank, world_size, comm_name, variables, data, steps,
+                      lr, wire, env):
+    """SGD on the flax-layout MLP through create_communicator(comm_name)
+    -> create_multi_node_optimizer(wire=WireConfig(**wire)) ->
+    build_train_step, rank r taking rows r of each step's global batch;
+    then a step the non-finite guard skips, and the optimizer's
+    state_dict."""
+    os.environ.update(env)
+    import chainermn_tpu_torch as cmn
+    from chainermn_tpu_torch.comm_wire import WireConfig
+    from chainermn_tpu_torch.ops.losses import softmax_cross_entropy
+
+    comm = cmn.create_communicator(comm_name)
+    model = FlaxLayoutMLP(variables)
+    opt = cmn.create_multi_node_optimizer(
+        torch.optim.SGD(model.parameters(), lr=lr), comm,
+        wire=WireConfig(**wire))
+    step = cmn.build_train_step(
+        comm, lambda b: softmax_cross_entropy(model(b[0]), b[1]), opt)
+    x, y = data
+    per = len(x) // (steps * world_size)
+    losses = []
+
+    def batch(i):
+        lo = (i * world_size + rank) * per
+        return (torch.from_numpy(x[lo:lo + per]),
+                torch.from_numpy(y[lo:lo + per]))
+
+    for i in range(steps):
+        losses.append(float(step(batch(i))["loss"]))
+    wplan = opt.wire_plan()
+    out = {"params": [p.detach().numpy().copy() for p in model.parameters()],
+           "residual": [r.numpy().copy() for r in opt.wire_residual],
+           "losses": losses, "plan_hash": wplan.plan_hash(),
+           "schedules": wplan.schedules, "mesh_shape": comm.mesh_shape,
+           "state_dict_residual": all(
+               torch.equal(a, b) for a, b in zip(
+                   opt.state_dict()["wire_residual"], opt.wire_residual))}
+    again = cmn.create_multi_node_optimizer(
+        torch.optim.SGD(model.parameters(), lr=lr), comm,
+        wire=WireConfig(**wire))
+    again.load_state_dict(opt.state_dict())
+    out["loaded_residual"] = (
+        len(again.wire_residual) == len(opt.wire_residual) and all(
+            torch.equal(a, b)
+            for a, b in zip(again.wire_residual, opt.wire_residual)))
+
+    def poisoned(b):
+        loss = softmax_cross_entropy(model(b[0]), b[1])
+        return loss * float("nan") if rank == world_size - 1 else loss
+
+    before = [r.clone() for r in opt.wire_residual]
+    params = [p.detach().clone() for p in model.parameters()]
+    skip = cmn.build_train_step(comm, poisoned, opt, nonfinite="skip")
+    out["skip_finite"] = skip(batch(0))["grads_finite"]
+    out["skip_kept_residual"] = (
+        len(before) == len(opt.wire_residual) and all(
+            torch.equal(a, b) for a, b in zip(before, opt.wire_residual)))
+    out["skip_kept_params"] = all(
+        torch.equal(a, b) for a, b in zip(params, model.parameters()))
+    return out
+
+
+def mnbn_layer_worker(rank, world_size, x, c, variables, dtype, env):
+    """MultiNodeBatchNormalization over this rank's rows of ``x`` (NCHW)
+    in a world of ``world_size``: the output, the running statistics,
+    the gradients of ``sum(y * c) / rows`` (c: this rank's rows of the
+    cotangent), and the all-reduces counted; then eval mode."""
+    os.environ.update(env)
+    import chainermn_tpu_torch as cmn
+    from chainermn_tpu_torch.functions import allreduce_mean
+    from chainermn_tpu_torch.links import MultiNodeBatchNormalization
+
+    comm = cmn.create_communicator("hierarchical")
+    per = x.shape[0] // world_size
+    xr = torch.from_numpy(x[rank * per:(rank + 1) * per]).requires_grad_()
+    cr = torch.from_numpy(c[rank * per:(rank + 1) * per])
+    layer = MultiNodeBatchNormalization(x.shape[1], comm,
+                                        dtype=getattr(torch, dtype))
+    with torch.no_grad():
+        layer.weight.copy_(torch.from_numpy(variables["scale"]))
+        layer.bias.copy_(torch.from_numpy(variables["bias"]))
+    n0 = allreduce_mean.calls
+    y = layer(xr)
+    ((y.float() * cr).sum() / per).backward()
+    out = {"y": y.detach().float().numpy(), "dx": xr.grad.numpy(),
+           "dscale": layer.weight.grad.numpy(),
+           "dbias": layer.bias.grad.numpy(),
+           "mean": layer.running_mean.numpy().copy(),
+           "var": layer.running_var.numpy().copy(),
+           "calls": allreduce_mean.calls - n0}
+    layer.eval()
+    n0 = allreduce_mean.calls
+    with torch.no_grad():
+        out["y_eval"] = layer(xr).float().numpy()
+    out["eval_calls"] = allreduce_mean.calls - n0
+    return out
+
+
+def mnbn_resnet_worker(rank, world_size, variables, data, steps, lr,
+                       momentum, env, grad_dtype="bfloat16"):
+    """The MNBN image path: a fp32 ResNet-50 (flax variables of the
+    synchronized model) through create_communicator("hierarchical",
+    allreduce_grad_dtype=grad_dtype) -> create_mnbn_model ->
+    create_multi_node_optimizer(SGD momentum) ->
+    build_train_step(model_state=running statistics)."""
+    os.environ.update(env)
+    import chainermn_tpu_torch as cmn
+    from chainermn_tpu_torch.comm_wire import plan_wire
+    from chainermn_tpu_torch.functions import allreduce_mean
+    from chainermn_tpu_torch.links import create_mnbn_model
+    from chainermn_tpu_torch.models import (
+        ResNet50, flax_leaf_specs, flax_ordered_parameters,
+        resnet_params_from_flax)
+    from chainermn_tpu_torch.ops.losses import softmax_cross_entropy
+
+    comm = cmn.create_communicator("hierarchical",
+                                   allreduce_grad_dtype=grad_dtype)
+    model = create_mnbn_model(
+        ResNet50(num_classes=10, num_filters=8, dtype=torch.float32), comm)
+    model.load_state_dict(resnet_params_from_flax(variables))
+    comm.bcast_data(model)
+    x, y = data
+    shard = cmn.scatter_dataset(list(zip(x, y)), comm, shuffle=True, seed=5)
+    opt = cmn.create_multi_node_optimizer(torch.optim.SGD(
+        [p for _, p in flax_ordered_parameters(model)], lr=lr,
+        momentum=momentum), comm)
+    step = cmn.build_train_step(
+        comm, lambda b: softmax_cross_entropy(model(b[0]), b[1]), opt,
+        model_state=list(model.buffers()))
+    per = len(shard) // steps
+    losses, calls = [], []
+    for i in range(steps):
+        rows = [shard[j] for j in range(i * per, (i + 1) * per)]
+        batch = (torch.from_numpy(np.stack([r[0] for r in rows])),
+                 torch.from_numpy(np.stack([r[1] for r in rows])))
+        n0 = allreduce_mean.calls
+        losses.append(float(step(batch)["loss"]))
+        calls.append(allreduce_mean.calls - n0)
+    return {"indices": shard.indices.copy(), "losses": losses,
+            "calls": calls, "mesh_shape": comm.mesh_shape,
+            "state": {k: v.detach().numpy().copy()
+                      for k, v in model.state_dict().items()},
+            "flax_plan_hash": plan_wire(flax_leaf_specs(model), opt.wire,
+                                        comm).plan_hash(),
+            "codec": opt.wire.codec}
 
 
 class _Local:

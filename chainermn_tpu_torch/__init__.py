@@ -26,7 +26,12 @@ data-parallel image path of ChainerMN's examples (``models.MLP``,
 ``examples.train_imagenet``) with the reduced-precision gradient wire
 on the ``ops.fused_cast_scale`` kernel; and synchronized BatchNorm
 (``links.create_mnbn_model``) with the ``hierarchical`` communicator,
-the ``int8`` gradient wire and error feedback.
+the ``int8`` gradient wire and error feedback; and the multi-node
+checkpointer (``create_multi_node_checkpointer``), the input pipeline
+(``iterators.prefetch_to_device`` on a side CUDA stream, the
+synchronized and multi-node iterators) and the ImageNet example's other
+architectures (``models.VGG16``, ``AlexNet``, ``NIN``, ``GoogLeNet``,
+``GoogLeNetBN``).
 """
 
 import importlib
@@ -43,6 +48,10 @@ _ENTRY_POINTS = {
     "build_train_step": "optimizers",
     "scatter_dataset": "datasets",
     "create_multi_node_evaluator": "extensions",
+    "create_multi_node_checkpointer": "extensions",
+    "create_multi_node_iterator": "iterators",
+    "create_synchronized_iterator": "iterators",
+    "create_empty_dataset": "datasets",
 }
 
 __all__ = list(_SUBPACKAGES) + list(_ENTRY_POINTS)

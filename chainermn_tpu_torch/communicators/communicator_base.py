@@ -17,7 +17,8 @@ returns what ChainerMN's MPI call left in this rank's buffer:
   result's row j came from rank j;
 * ``reduce_scatter(x, op)``: block ``rank`` of the reduction of a
   ``(n,)`` tensor, ``n`` divisible by ``size`` (``sum`` or ``mean``);
-* the ``*_obj`` forms on the c10d object collectives (pickled);
+* the ``*_obj`` forms on the c10d object collectives (pickled), and
+  ``sync_seed``, one seed agreed by every rank;
 * ``bcast_data(model)``: rank 0's parameters and buffers, in place;
 * ``allreduce_grad(model)``: every ``p.grad`` averaged in place.
 
@@ -250,6 +251,25 @@ class CommunicatorBase:
         for o in objs[1:]:
             out = out + o
         return out
+
+    @property
+    def sync_seed(self) -> int:
+        """A seed every rank of this communicator agrees on (parity:
+        the seed broadcast of ChainerMN's synchronized iterator): drawn
+        once, rank 0's draw broadcast with ``bcast_obj``."""
+        if getattr(self, "_sync_seed", None) is None:
+            seed = int(np.random.randint(0, 2**31 - 1))
+            self._sync_seed = int(self.bcast_obj(seed, root=0))
+        return self._sync_seed
+
+    def world_descriptor(self) -> dict:
+        """The world a checkpoint's manifest names: ``world_size``, the
+        ``process_count`` (one process per rank) and the sync axes
+        (``mesh_shape``)."""
+        return {"world_size": int(self._size),
+                "process_count": int(self._size),
+                "mesh_axes": {str(k): int(v)
+                              for k, v in self.mesh_shape.items()}}
 
     # ------------------------------------------------------------------
     # Model-level helpers

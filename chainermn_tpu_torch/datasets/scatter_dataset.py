@@ -1,7 +1,8 @@
 """Dataset scattering.
 
 Port of ``chainermn_tpu/datasets/scatter_dataset.py`` (``scatter_index``,
-``scatter_dataset`` and the weighted split they use).  Scattering is
+``scatter_dataset``, ``rescatter``, ``scatter_dataset_all`` and the
+weighted split they use).  Scattering is
 metadata only: every rank agrees on the seed (one object broadcast),
 builds the same ``np.random.RandomState(seed).permutation``, and keeps
 its slice of indices into the original dataset, so the port's shards,
@@ -191,6 +192,37 @@ def scatter_index(n: int, size: int, rank: int, *,
     return order, start, end
 
 
+def _shard(dataset, base: np.ndarray, n_shards: int, rank: int,
+           equalize: bool, weights) -> SubDataset:
+    """Shard ``rank`` of ``n_shards`` over the permutation ``base``,
+    carrying what :func:`rescatter` needs: ``base_order`` and
+    ``scatter_spec``."""
+    order, start, end = scatter_index(
+        len(dataset), n_shards, rank, equalize=equalize, weights=weights,
+        order=base,
+    )
+    sub = SubDataset(dataset, order, start, end)
+    sub.base_order = base
+    sub.scatter_spec = {
+        "n_shards": int(n_shards), "rank": int(rank),
+        "equalize": bool(equalize),
+        "weights": None if weights is None
+        else tuple(float(w) for w in weights),
+    }
+    return sub
+
+
+def _agreed_base(dataset, comm, root: int, shuffle: bool,
+                 seed: Optional[int]) -> np.ndarray:
+    """The base permutation every rank builds from root's seed."""
+    if seed is None:
+        seed = int(np.random.randint(0, 2**31 - 1))
+    seed = comm.bcast_obj(int(seed), root=root)
+    if shuffle:
+        return np.random.RandomState(seed).permutation(len(dataset))
+    return np.arange(len(dataset))
+
+
 def scatter_dataset(
     dataset: Sequence[Any],
     comm,
@@ -204,15 +236,36 @@ def scatter_dataset(
     """This rank's shard of ``dataset`` (parity: ChainerMN's
     ``scatter_dataset``): shard ``comm.rank`` of ``comm.size``, padded
     to equal lengths by wrapping unless ``force_equal_length=False``.
-    Rank ``root``'s seed wins when ranks pass different ones."""
-    if seed is None:
-        seed = int(np.random.randint(0, 2**31 - 1))
-    seed = comm.bcast_obj(int(seed), root=root)
-    base = np.arange(len(dataset))
-    if shuffle:
-        base = np.random.RandomState(seed).permutation(len(dataset))
-    order, start, end = scatter_index(
-        len(dataset), comm.size, comm.rank, equalize=force_equal_length,
-        weights=weights, order=base,
-    )
-    return SubDataset(dataset, order, start, end)
+    Rank ``root``'s seed wins when ranks pass different ones.  The shard
+    carries ``base_order`` and ``scatter_spec`` for :func:`rescatter`."""
+    base = _agreed_base(dataset, comm, root, shuffle, seed)
+    return _shard(dataset, base, comm.size, comm.rank, force_equal_length,
+                  weights)
+
+
+def rescatter(sub: SubDataset, weights: Sequence[float]) -> SubDataset:
+    """Re-shard a scattered dataset under new per-rank ``weights``,
+    keeping the original permutation (every rank re-splits the same
+    ``base_order``, so agreeing on the weights is agreeing on the new
+    shard map).  Only shards made by :func:`scatter_dataset` carry the
+    metadata it needs."""
+    spec = getattr(sub, "scatter_spec", None)
+    base = getattr(sub, "base_order", None)
+    if spec is None or base is None:
+        raise ValueError(
+            "rescatter needs a SubDataset produced by scatter_dataset "
+            "(carrying base_order + scatter_spec)"
+        )
+    return _shard(sub._dataset, base, spec["n_shards"], spec["rank"],
+                  spec["equalize"], weights)
+
+
+def scatter_dataset_all(dataset, comm, shuffle: bool = False,
+                        seed: Optional[int] = None) -> list:
+    """Every rank's shard at once, in rank order (the JAX package's
+    single-controller convenience; here each process sees them all,
+    from the one agreed permutation).  ``seed`` defaults to 0."""
+    base = _agreed_base(dataset, comm, 0, shuffle, 0 if seed is None
+                        else seed)
+    return [_shard(dataset, base, comm.size, r, True, None)
+            for r in range(comm.size)]

@@ -6,7 +6,8 @@ Trainer with rank-0 reporting).
 
 One process per card; ``--batchsize`` is the global batch, split over
 the ranks.  Without an ``mnist.npz`` (``CHAINERMN_TORCH_MNIST``) it
-trains on the synthetic stand-in.
+trains on the synthetic stand-in.  ``--checkpoint NAME`` snapshots every
+epoch and resumes from the newest step every rank holds.
 
     python -m chainermn_tpu_torch.examples.train_mnist --epoch 2
     python -m chainermn_tpu_torch.examples.train_mnist --device cpu
@@ -51,7 +52,7 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="cuda (this rank's card) or cpu (gloo)")
     p.add_argument("--checkpoint", default=None,
-                   help="checkpoint/resume under this name (not ported)")
+                   help="checkpoint every epoch and resume under this name")
     return p
 
 
@@ -61,10 +62,6 @@ def main(argv=None, *, params=None) -> list:
     ``{'params': ...}`` of the JAX ``MLP`` (numpy arrays), in place of
     the seeded initialisation."""
     args = parser().parse_args(argv)
-    if args.checkpoint:
-        raise NotImplementedError(
-            "--checkpoint is not ported yet: see ROADMAP Queue 1, "
-            "'Checkpoints and the input pipeline'")
     created = init_world(args.device)
     try:
         comm = cmn.create_communicator(
@@ -89,7 +86,7 @@ def main(argv=None, *, params=None) -> list:
             [p for _, p in flax_ordered_parameters(model)], lr=args.lr), comm)
         step = cmn.build_train_step(
             comm, lambda b: softmax_cross_entropy(model(b[0]), b[1]), opt)
-        trainer = Trainer(Updater(train_it, step),
+        trainer = Trainer(Updater(train_it, step, model=model),
                           stop_trigger=(args.epoch, "epoch"))
 
         def metric(b):
@@ -106,6 +103,12 @@ def main(argv=None, *, params=None) -> list:
         trainer.extend(log, trigger=(1, "epoch"))
         trainer.extend(T.PrintReport(REPORT, log, comm=comm),
                        trigger=(1, "epoch"))
+        if args.checkpoint:
+            ckpt = cmn.create_multi_node_checkpointer(args.checkpoint, comm)
+            trainer.extend(ckpt, trigger=(1, "epoch"))
+            resumed = ckpt.restore_trainer(trainer)
+            if resumed is not None and chief:
+                print(f"resumed from iteration {resumed}")
         trainer.run()
         if chief and log.log:
             print("final:", {k: round(v, 4) for k, v in log.log[-1].items()

@@ -82,7 +82,9 @@ class SerialIterator:
 
     def serialize(self) -> dict:
         """The iterator's position, order and full generator state, so a
-        restored run reshuffles as the uninterrupted one would."""
+        restored run reshuffles as the uninterrupted one would.  O(1):
+        the order is returned by reference (the iterator replaces it
+        each epoch and never writes into it)."""
         kind, keys, pos, has_gauss, cached = self._rng.get_state()
         return {"epoch": self.epoch, "pos": self._pos, "order": self._order,
                 "rng_kind": kind, "rng_keys": keys.copy(), "rng_pos": pos,
@@ -95,7 +97,9 @@ class SerialIterator:
             str(state["rng_kind"]), np.asarray(state["rng_keys"], np.uint32),
             int(state["rng_pos"]), int(state["rng_has_gauss"]),
             float(state["rng_cached"])))
-        self._order = np.asarray(state["order"])
+        # a copy: the state may be restored again, and must not alias
+        # the order this iterator goes on with
+        self._order = np.array(state["order"])
 
 
 class EpochIterator:

@@ -1,14 +1,22 @@
-"""Models: the TransformerLM, the MNIST MLP, the ResNet family, and their
-flax weight carriers."""
+"""Models: the TransformerLM, the MNIST MLP, the ImageNet example's
+architectures (the ResNet family, VGG16, AlexNet, NIN, GoogLeNet and
+GoogLeNetBN), and their flax weight carriers."""
 
+from .alexnet import AlexNet
 from .convert import (
+    alexnet_params_from_flax,
     flax_leaf_specs,
     flax_ordered_parameters,
+    googlenet_params_from_flax,
     lm_params_from_flax,
     mlp_params_from_flax,
+    nin_params_from_flax,
     resnet_params_from_flax,
+    vgg16_params_from_flax,
 )
+from .googlenet import GoogLeNet, GoogLeNetBN, Inception
 from .mlp import MLP
+from .nin import NIN
 from .resnet import (
     BasicBlock,
     BatchNorm,
@@ -20,9 +28,13 @@ from .resnet import (
     default_norm,
 )
 from .transformer import MlpBlock, TransformerLM, lm_loss
+from .vgg import VGG16
 
-__all__ = ["BasicBlock", "BatchNorm", "Bottleneck", "MLP", "MlpBlock",
-           "ResNet", "ResNet18", "ResNet50", "ResNet101", "TransformerLM",
-           "default_norm", "flax_leaf_specs", "flax_ordered_parameters",
+__all__ = ["AlexNet", "BasicBlock", "BatchNorm", "Bottleneck", "GoogLeNet",
+           "GoogLeNetBN", "Inception", "MLP", "MlpBlock", "NIN", "ResNet",
+           "ResNet18", "ResNet50", "ResNet101", "TransformerLM", "VGG16",
+           "alexnet_params_from_flax", "default_norm", "flax_leaf_specs",
+           "flax_ordered_parameters", "googlenet_params_from_flax",
            "lm_loss", "lm_params_from_flax", "mlp_params_from_flax",
-           "resnet_params_from_flax"]
+           "nin_params_from_flax", "resnet_params_from_flax",
+           "vgg16_params_from_flax"]

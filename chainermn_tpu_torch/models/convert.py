@@ -142,9 +142,72 @@ def resnet_leaves(model: nn.Module) -> List[Leaf]:
                   key=lambda leaf: leaf.path)
 
 
+# the flax module kinds of the other image models -> the port's
+# attribute holding them (``Kind_k`` is entry k; the dense head of
+# GoogLeNet, ``Dense_0``, is the one unindexed ``head``)
+_CNN_KINDS = {
+    "VGG16": {"Conv": "convs", "Dense": "fcs"},
+    "AlexNet": {"Conv": "convs", "Dense": "fcs"},
+    "NIN": {"_MLPConv": "mlpconvs", "Conv": "convs"},
+    "GoogLeNet": {"Conv": "convs", "Inception": "inceptions", "Dense": "head",
+                  **{n: "norms" for n in NORM_NAMES}},
+}
+_CNN_ARRAYS = {"kernel": "weight", "bias": "bias", "scale": "weight",
+               "mean": "running_mean", "var": "running_var"}
+
+
+def _cnn_leaf(path: Tuple[str, ...], kinds: Dict[str, str]) -> Leaf:
+    """The port's key and layout of one flax path of a VGG16, AlexNet,
+    NIN or GoogLeNet tree."""
+    mods, name = path[1:-1], path[-1]
+    parts = []
+    for mod in mods:
+        kind, k = mod.rsplit("_", 1)
+        if kind not in kinds:
+            raise KeyError(f"no port key for the flax path {path}")
+        parts += [kinds[kind]] if kinds[kind] == "head" else [kinds[kind], k]
+    last = mods[-1].rsplit("_", 1)[0]
+    layout = AS_IS
+    if name == "kernel":
+        layout = CONV if last == "Conv" else DENSE
+    return Leaf(path, ".".join(parts + [_CNN_ARRAYS[name]]), layout)
+
+
+def cnn_leaves(model: nn.Module) -> List[Leaf]:
+    """Every parameter (and running statistic) of a port ``VGG16``,
+    ``AlexNet``, ``NIN`` or ``GoogLeNet`` in flax's order: the flax path
+    of each ``state_dict`` key, sorted (so ``Conv_10`` comes before
+    ``Conv_2`` and ``Inception_8`` after ``Inception_10`` would)."""
+    kinds = _CNN_KINDS[type(model).__name__]
+    attrs = {a: k for k, a in kinds.items() if a != "norms"}
+    norms = [m for m in model.modules() if type(m).__name__ in NORM_NAMES]
+    if norms:
+        attrs["norms"] = type(norms[0]).__name__
+    arrays = {v: k for k, v in _CNN_ARRAYS.items() if k != "scale"}
+    leaves = []
+    for key in model.state_dict():
+        parts = key.split(".")
+        mods, i = [], 0
+        while i < len(parts) - 1:
+            if parts[i] == "head":
+                mods.append("Dense_0")
+                i += 1
+            else:
+                mods.append(f"{attrs[parts[i]]}_{parts[i + 1]}")
+                i += 2
+        name = arrays[parts[-1]]
+        if name == "kernel" and mods[-1].rsplit("_", 1)[0] in NORM_NAMES:
+            name = "scale"
+        coll = "batch_stats" if name in ("mean", "var") else "params"
+        leaf = _cnn_leaf((coll, *mods, name), kinds)
+        assert leaf.key == key, (leaf, key)
+        leaves.append(leaf)
+    return sorted(leaves, key=lambda leaf: leaf.path)
+
+
 def model_leaves(model: nn.Module) -> List[Leaf]:
-    """The flax-ordered leaves of a port ``TransformerLM``, ``MLP`` or
-    ``ResNet``."""
+    """The flax-ordered leaves of a port ``TransformerLM``, ``MLP``,
+    ``ResNet``, ``VGG16``, ``AlexNet``, ``NIN`` or ``GoogLeNet``."""
     from .mlp import MLP
     from .resnet import ResNet
     from .transformer import TransformerLM
@@ -155,6 +218,8 @@ def model_leaves(model: nn.Module) -> List[Leaf]:
         return mlp_leaves()
     if isinstance(model, ResNet):
         return resnet_leaves(model)
+    if type(model).__name__ in _CNN_KINDS:
+        return cnn_leaves(model)
     raise TypeError(f"no flax leaf table for {type(model).__name__}")
 
 
@@ -246,3 +311,44 @@ def resnet_params_from_flax(variables) -> Dict[str, torch.Tensor]:
     for coll in ("params", "batch_stats"):
         walk(variables[coll], (coll,))
     return out
+
+
+def _cnn_params_from_flax(variables, arch: str) -> Dict[str, torch.Tensor]:
+    out: Dict[str, torch.Tensor] = {}
+    kinds = _CNN_KINDS[arch]
+
+    def walk(tree, path):
+        if isinstance(tree, dict) or hasattr(tree, "items"):
+            for k, v in tree.items():
+                walk(v, path + (k,))
+            return
+        leaf = _cnn_leaf(path, kinds)
+        out[leaf.key] = _t(tree, leaf.layout)
+
+    for coll in ("params", "batch_stats"):
+        if coll in variables:
+            walk(variables[coll], (coll,))
+    return out
+
+
+def vgg16_params_from_flax(variables) -> Dict[str, torch.Tensor]:
+    """Map ``{'params': ...}`` of the JAX ``VGG16`` (arrays as numpy)
+    onto the port's ``VGG16`` ``state_dict``."""
+    return _cnn_params_from_flax(variables, "VGG16")
+
+
+def alexnet_params_from_flax(variables) -> Dict[str, torch.Tensor]:
+    """Map ``{'params': ...}`` of the JAX ``AlexNet`` onto the port's."""
+    return _cnn_params_from_flax(variables, "AlexNet")
+
+
+def nin_params_from_flax(variables) -> Dict[str, torch.Tensor]:
+    """Map ``{'params': ...}`` of the JAX ``NIN`` onto the port's."""
+    return _cnn_params_from_flax(variables, "NIN")
+
+
+def googlenet_params_from_flax(variables) -> Dict[str, torch.Tensor]:
+    """Map ``{'params': ...}`` of the JAX ``GoogLeNet`` (and
+    ``batch_stats`` of ``GoogLeNetBN``, plain or synchronized) onto the
+    port's ``GoogLeNet`` ``state_dict``."""
+    return _cnn_params_from_flax(variables, "GoogLeNet")

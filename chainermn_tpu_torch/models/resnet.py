@@ -26,12 +26,13 @@ tree (``params`` and ``batch_stats``) over.
 
 from __future__ import annotations
 
-import math
 from typing import Callable, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ._layers import init_flax_
 
 BN_MOMENTUM = 0.9  # flax's convention: the running average keeps 0.9
 BN_EPS = 1e-5
@@ -165,13 +166,6 @@ class BasicBlock(nn.Module):
         return F.relu(y + residual)
 
 
-def _lecun_normal_(w: torch.Tensor, g: torch.Generator) -> None:
-    """flax's default kernel init: truncated normal (2 sigma) with
-    variance 1 / fan_in."""
-    std = math.sqrt(1.0 / w[0].numel()) / 0.87962566103423978
-    nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std, generator=g)
-
-
 class ResNet(nn.Module):
     """``ResNet(stage_sizes, block_cls)`` on NHWC images; returns fp32
     logits.  ``train()``/``eval()`` select batch or running statistics
@@ -197,12 +191,7 @@ class ResNet(nn.Module):
                 in_ch = features * block_cls.expansion
         self.blocks = nn.ModuleList(blocks)
         self.head = nn.Linear(in_ch, num_classes)
-        g = torch.Generator().manual_seed(seed)
-        with torch.no_grad():
-            for m in self.modules():
-                if isinstance(m, (nn.Conv2d, nn.Linear)):
-                    _lecun_normal_(m.weight, g)
-            self.head.bias.zero_()
+        init_flax_(self, seed)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.permute(0, 3, 1, 2).to(self.dtype)  # NHWC -> channels_last NCHW

@@ -1,7 +1,7 @@
-"""Resilience error taxonomy (the serving path's subset).
+"""Resilience error taxonomy (the subset the port raises or catches).
 
 A copy of the classes of ``chainermn_tpu/resilience/errors.py`` that the
-ported serving path raises or catches.  Every failure the resilience
+ported serving, training and checkpoint paths raise or catch.  Every failure the resilience
 layer can contain is a :class:`ResilienceError` carrying structured
 diagnostics; its ``recoverable`` flag is the contract with the retry
 paths (the batcher re-queues a request on a recoverable error and
@@ -55,12 +55,30 @@ class TransientCommError(ResilienceError):
     recoverable = True
 
 
+class PayloadCorruptionError(ResilienceError):
+    """A control-plane payload failed to unpickle (a truncated or torn
+    write).  Recoverable: an exchange again reproduces it, so the
+    lockstep allgather retries it."""
+
+    recoverable = True
+
+
 class PreemptionError(ResilienceError):
     """A worker received a preemption/reclaim notice (or the injector's
     ``preempt`` kind simulating one).  Recoverable in the same world;
     the batcher treats it as a drain signal and lets it propagate."""
 
     recoverable = True
+
+
+class WorldResizeRequiredError(ResilienceError):
+    """The world that resumes is not the world that saved (the
+    checkpoint's manifest names another world size), and no template
+    was given to reshard onto.  Not recoverable in place: the job must
+    re-form the world and reshard the checkpoint (ROADMAP Queue 1,
+    'Resilience')."""
+
+    recoverable = False
 
 
 class StepDivergedError(ResilienceError):

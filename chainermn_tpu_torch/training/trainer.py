@@ -23,32 +23,44 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from .._tree import tree_map
 from .triggers import get_trigger
 
 _RESILIENCE = "ROADMAP Queue 1, 'Resilience'"
 
 
+def _place(leaf, device: torch.device):
+    if isinstance(leaf, np.ndarray):
+        leaf = torch.from_numpy(np.ascontiguousarray(leaf))
+    elif not isinstance(leaf, torch.Tensor) or leaf.device == device:
+        return leaf
+    if device.type == "cuda" and leaf.device.type == "cpu":
+        return leaf.pin_memory().to(device, non_blocking=True)
+    return leaf.to(device)
+
+
 def to_device(batch, device: torch.device):
-    """A numpy batch (an array, or a tuple or dict of them) as tensors on
-    ``device``; to a card through pinned host memory, without waiting
-    for the copy."""
-    if isinstance(batch, tuple):
-        return tuple(to_device(b, device) for b in batch)
-    if isinstance(batch, dict):
-        return {k: to_device(v, device) for k, v in batch.items()}
-    t = torch.from_numpy(np.ascontiguousarray(batch))
-    if device.type == "cuda":
-        return t.pin_memory().to(device, non_blocking=True)
-    return t.to(device)
+    """A batch (a dict, list or tuple of arrays and tensors) with its
+    arrays and tensors on ``device``; host memory goes to a card through
+    pinned memory, without waiting for the copy (PyTorch's caching host
+    allocator holds a pinned block until its copy is done).  A tensor
+    already on ``device`` passes through as it is (no second copy: a
+    prefetched batch), and other leaves (a seed, a label as an int)
+    too."""
+    return tree_map(lambda leaf: _place(leaf, device), batch)
 
 
 class Updater:
     """Applies one train step per iteration to the next batch of
-    ``iterator``, moved to the step's communicator's device."""
+    ``iterator``, moved to the step's communicator's device (a batch
+    already there, from ``prefetch_to_device``, is not copied again).
+    ``model``: the module the step trains, which a checkpointer saves
+    and restores (the step's optimizer is ``step_fn.optimizer``)."""
 
-    def __init__(self, iterator, step_fn):
+    def __init__(self, iterator, step_fn, model=None):
         self.iterator = iterator
         self.step_fn = step_fn
+        self.model = model
         self.device = torch.device(step_fn.comm.device)
         self.last_metrics: Dict[str, Any] = {}
 
@@ -151,14 +163,24 @@ class Trainer:
             f"elastic restart is not ported yet: see {_RESILIENCE}")
 
     def state_dict(self) -> Dict[str, Any]:
-        """The loop's position: the iteration and the iterator's state
-        (the model and optimizer are the caller's to save)."""
+        """The loop's position: the iteration, the iterator's state and
+        each extension trigger's last firing, by extension name, as
+        Chainer's trainer serializes its triggers (the model and
+        optimizer are a checkpointer's to save)."""
         it = self.updater.iterator
         return {"iteration": self.iteration,
                 "iterator": it.serialize() if hasattr(it, "serialize")
-                else None}
+                else None,
+                "triggers": {e.name: e.trigger.state()
+                             for e in self._extensions}}
 
     def load_state_dict(self, state: Dict[str, Any]) -> None:
+        """Put the position back; a resumed run's triggers fire where the
+        uninterrupted run's would (not at once, on the restored epoch)."""
         self.iteration = state["iteration"]
         if state.get("iterator") and hasattr(self.updater.iterator, "restore"):
             self.updater.iterator.restore(state["iterator"])
+        triggers = state.get("triggers") or {}
+        for e in self._extensions:
+            if e.name in triggers:
+                e.trigger.restore(triggers[e.name])

@@ -65,7 +65,25 @@ Run from the repository root, with one card.  Phases:
 10. the Trainer path: the MNIST example's twin (MLP, bf16 wire) through
    ``Trainer`` + ``Evaluator`` + the reports for a few epochs, then the
    ImageNet example's twin with ResNet-50 for a few iterations, each
-   with K1's count set to 0 just before and read just after.
+   with K1's count set to 0 just before and read just after;
+11. the checkpointed image path: VGG16 at full width (batch 64 of 224 x
+   224, 1000 classes) through ``create_communicator("pure_nccl",
+   allreduce_grad_dtype=bfloat16)`` -> ``create_multi_node_optimizer(SGD
+   momentum)`` -> ``build_train_step`` on a 1-rank NCCL group, K1's
+   count set to 0 just before the timed steps and read just after, a
+   profiled step; the same step fed through ``Updater`` from an
+   in-memory dataset with ``prefetch_to_device`` depth 0 and 2 (host ms
+   a step, idle share, the copies' stream and overlap); the
+   checkpointer's save (sync and async) and resume of that state, bit
+   for bit; the ImageNet twin with VGG16, ``--prefetch 2 --checkpoint``
+   for one epoch, then resumed for a second, its batches held against
+   an uninterrupted run's, a snapshot with a flipped byte not elected;
+   then the twin with AlexNet, NIN, GoogLeNet, GoogLeNetBN and
+   GoogLeNetBN with MNBN over the hierarchical communicator, each with
+   K1's count set to 0 just before and read just after.  After each of
+   these runs, outside its counting window, K1 is held bit for bit
+   against its plain version at every bucket size of the run's wire
+   plan that no earlier phase held.
 
 Any failed check raises, so the script exits non-zero.  Without CUDA it
 exits non-zero before printing any result.  The last two lines are the
@@ -889,22 +907,26 @@ def resnet50_plan():
     return make_plan(flax_leaf_specs(ResNet50(num_classes=N_CLASSES)))
 
 
-def cast_kernel_phase(bucket_sizes):
+# K1 against its plain version: the cases and the largest error over the
+# finite outputs, by the path whose bucket sizes they cover
+CAST_EXACT = {}
+
+
+def cast_exact(path, bucket_sizes, small=False):
     """K1 against its plain version, bit for bit (NaN positions as
-    positions), for every dtype pair at sizes 1, 7 and 1027, an odd-offset
-    view into a larger buffer and every bucket size, at each scale; then
-    timed on the main path's launches (each bucket fp32 -> bf16 to the
-    wire, bf16 -> fp32 back; scale 1 at world 1) beside its plain
-    version, Tensor.to (the one PyTorch call computing the scale-1 leg)
-    and its bound.  Returns the record: per-launch means over one step's
-    launches."""
+    positions), for every dtype pair at every bucket size of ``path``
+    (each a view into one buffer), at each scale; with ``small``, also
+    at sizes 1, 7 and 1027 and an odd-offset view.  Run outside every
+    counting window.  Records into CAST_EXACT and returns the largest
+    error over the finite outputs."""
     big = max(bucket_sizes)
     n_cases, err = 0, 0.0
     for src in CAST_DTYPES:
         buf = cast_input(big + 8, src, 1)
-        xs = [cast_input(n, src, n) for n in (1, 7, 1027)]
-        xs.append(buf[3:3 + 70001])  # odd element offset
-        xs += [buf[:n] for n in bucket_sizes]
+        xs = [buf[:n] for n in bucket_sizes]
+        if small:
+            xs += [cast_input(n, src, n) for n in (1, 7, 1027)]
+            xs.append(buf[3:3 + 70001])  # odd element offset
         for dst in CAST_DTYPES:
             for x in xs:
                 for scale in CAST_SCALES:
@@ -919,10 +941,35 @@ def cast_kernel_phase(bucket_sizes):
                     n_cases += 1
         del buf, xs
     torch.cuda.synchronize()
-    log(f"fused_cast_scale: bit-exact against its plain version in "
-        f"{n_cases} cases, max_abs_err={err} over the finite outputs (3 x 3 dtype pairs, sizes 1, 7, 1027, an odd-offset "
-        f"view of 70001 and the buckets {list(bucket_sizes)}, scales "
-        f"{[round(s, 6) for s in CAST_SCALES]})")
+    torch.cuda.empty_cache()
+    CAST_EXACT[path] = {"bucket_sizes": list(bucket_sizes), "cases": n_cases,
+                        "max_abs_err": err}
+    log(f"fused_cast_scale ({path}): bit-exact against its plain version in "
+        f"{n_cases} cases, max_abs_err={err} over the finite outputs (3 x 3 "
+        f"dtype pairs, the buckets {list(bucket_sizes)}"
+        + (", sizes 1, 7, 1027 and an odd-offset view of 70001" if small
+           else "")
+        + f", scales {[round(s, 6) for s in CAST_SCALES]})")
+    return err
+
+
+def cast_exact_covering(path, bucket_sizes):
+    """``cast_exact`` at the bucket sizes of ``path`` that no earlier
+    call held."""
+    held = {n for r in CAST_EXACT.values() for n in r["bucket_sizes"]}
+    new = [n for n in bucket_sizes if n not in held]
+    if new:
+        cast_exact(path, new)
+
+
+def cast_kernel_phase(bucket_sizes):
+    """K1 against its plain version (``cast_exact``) at ResNet-50's bucket
+    sizes and the small cases; then timed on the main path's launches
+    (each bucket fp32 -> bf16 to the wire, bf16 -> fp32 back; scale 1 at
+    world 1) beside its plain version, Tensor.to (the one PyTorch call
+    computing the scale-1 leg) and its bound.  Returns the record:
+    per-launch means over one step's launches."""
+    err = cast_exact("resnet50", bucket_sizes, small=True)
 
     grads = [torch.randn(n, device="cuda") * 1e-3 for n in bucket_sizes]
     wire = [g.bfloat16() for g in grads]
@@ -980,11 +1027,11 @@ def host_enqueue_ms(fn, iters):
     return ms
 
 
-def image_batch(device):
+def image_batch(device, n=IMAGE_BATCH):
     """The resident synthetic batch of bench.py:249-256 (seed 0 images,
     seed 1 labels)."""
-    x = np.random.RandomState(0).randn(IMAGE_BATCH, IMAGE, IMAGE, 3)
-    y = np.random.RandomState(1).randint(0, N_CLASSES, (IMAGE_BATCH,))
+    x = np.random.RandomState(0).randn(n, IMAGE, IMAGE, 3)
+    y = np.random.RandomState(1).randint(0, N_CLASSES, (n,))
     return (torch.from_numpy(x).to(device, torch.bfloat16),
             torch.from_numpy(y).to(device))
 
@@ -1375,6 +1422,428 @@ def trainer_phase(resnet_buckets):
             "imagenet_final": final, "imagenet_launches": im_launches}
 
 
+# Phase 11, the checkpointed image path: VGG16 at the batch of
+# bench.py:565-595 (config_vgg16_overlap, 64 a card), SGD momentum at
+# lr 0.01 (the dense archs have no BatchNorm, and 0.1 sends AlexNet's
+# synthetic-data loss to NaN within an epoch on the CPU)
+VGG_BATCH, VGG_STEPS, IMAGE_LR = 64, 6, 0.01
+# the prefetch A/B's timed updates (after two warm-up updates) and the
+# in-memory dataset's batches
+FEED_STEPS, FEED_BATCHES = 8, 4
+# the checkpointed twin's batches an epoch; the other archs' runs take
+# (ARCH_BATCHES_AN_EPOCH + 1) iterations: an epoch of the serial
+# iterator ends on the draw that starts the next one
+TWIN_EPOCH_BATCHES, ARCH_BATCHES_AN_EPOCH = 6, 2
+OTHER_ARCHS = ("alex", "nin", "googlenet", "googlenetbn",
+               "googlenetbn --mnbn --communicator hierarchical")
+
+
+def chrome_trace_shares(prof, path):
+    """From a profile's chrome trace: device busy ms (the union of every
+    kernel's interval, any stream), the batches' host-to-device copies'
+    ms, the share of that copy time that ran under a kernel, and the
+    streams of the kernels and of those copies."""
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                     if e.get("cat") == "kernel")
+    # the batches' copies (a MiB or more; a step's scalar copies apart)
+    batch_copies = [e for e in events if e.get("cat") == "gpu_memcpy"
+                    and "HtoD" in e.get("name", "")
+                    and e["args"].get("bytes", 0) >= 1 << 20]
+    copies = [(e["ts"], e["ts"] + e["dur"]) for e in batch_copies]
+    streams = {"kernels": sorted({e["args"].get("stream") for e in events
+                                  if e.get("cat") == "kernel"}),
+               "copies": sorted({e["args"].get("stream")
+                                 for e in batch_copies})}
+    merged = []
+    for a, b in kernels:
+        if merged and a <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], b)
+        else:
+            merged.append([a, b])
+    busy = sum(b - a for a, b in merged) / 1e3
+    copy_ms = sum(b - a for a, b in copies) / 1e3
+    under = sum(max(0.0, min(b, kb) - max(a, ka))
+                for a, b in copies for ka, kb in merged) / 1e3
+    return busy, copy_ms, (under / copy_ms if copy_ms else None), streams
+
+
+def feed_phase(step, model, dataset, prefetch):
+    """Host ms a step of ``Updater.update`` over ``SerialIterator``
+    batches of ``dataset``, fed directly (``prefetch`` 0) or through
+    ``prefetch_to_device(device_placer)``: FEED_STEPS updates back to back,
+    one synchronize at the end (the loop's own pace, as the Trainer
+    runs it); then a profiled window of 3 updates for the device's busy
+    time, its idle share and the copies' overlap with the kernels."""
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from chainermn_tpu_torch.iterators import (
+        SerialIterator, device_placer, prefetch_to_device)
+    from chainermn_tpu_torch.training import Updater
+
+    it = SerialIterator(dataset, VGG_BATCH, shuffle=True, seed=1)
+    placer = None
+    if prefetch:
+        placer = device_placer(torch.device("cuda", 0))
+        it = prefetch_to_device(it, placer, depth=prefetch)
+    upd = Updater(it, step, model=model)
+    for _ in range(2):
+        upd.update()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(FEED_STEPS):
+        upd.update()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3 / FEED_STEPS
+    check(np.isfinite(float(upd.last_metrics["loss"])),
+          f"prefetch {prefetch}: loss not finite")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            upd.update()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        busy, copy_ms, under, streams = chrome_trace_shares(
+            prof, os.path.join(tmp, "trace.json"))
+    out = {"prefetch": prefetch, "step_ms": ms,
+           "device_busy_ms_a_step": busy / 3,
+           "idle_share": 1 - busy / 3 / ms, "h2d_ms_a_step": copy_ms / 3,
+           "h2d_share_under_kernels": under, "streams": streams}
+    if placer is not None:
+        check(streams["copies"] and not set(streams["copies"])
+              & set(streams["kernels"]),
+              f"prefetch copies not on their own stream: {streams}")
+        out["side_stream_copies"] = placer.copies
+    log(f"vgg16 feed, prefetch {prefetch}: " + json.dumps(out))
+    return out
+
+
+def checkpoint_phase(comm, model, opt, step, dataset):
+    """The checkpointer on VGG16's training state (parameters, momentum,
+    the trainer's position): a synchronous save (wall ms, GB/s; its copy
+    to the host and one sha256 pass over its files timed alone), an
+    async save (the stall until ``save()`` returns, then its commit),
+    and a resume by a fresh checkpointer (a restart: the digests are
+    checked) into perturbed state, which must come back bit-equal."""
+    import tempfile
+
+    from chainermn_tpu_torch import create_multi_node_checkpointer
+    from chainermn_tpu_torch.extensions.checkpoint import _to_host
+    from chainermn_tpu_torch.iterators import SerialIterator
+    from chainermn_tpu_torch.resilience import elastic
+    from chainermn_tpu_torch.training import Trainer, Updater
+
+    trainer = Trainer(Updater(SerialIterator(dataset, VGG_BATCH, seed=1),
+                              step, model=model),
+                      stop_trigger=(1, "iteration"))
+    trainer.run()
+    saved = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    momentum = [opt.state[p]["momentum_buffer"].clone() for p in opt.params]
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = create_multi_node_checkpointer("vgg16", comm, path=tmp)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        ckpt(trainer)
+        save_ms = (time.perf_counter() - t) * 1e3
+        step_dir = os.path.join(tmp, "vgg16", f"step_{trainer.iteration:012d}")
+        nbytes = sum(os.path.getsize(os.path.join(step_dir, f))
+                     for f in os.listdir(step_dir))
+        # the save's parts, timed alone: the copy to the host and one
+        # sha256 pass over the committed files (the save takes one)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        _to_host(ckpt._trainer_state(trainer))
+        host_ms = (time.perf_counter() - t) * 1e3
+        t = time.perf_counter()
+        elastic.file_digests(step_dir)
+        sha_ms = (time.perf_counter() - t) * 1e3
+        lazy = create_multi_node_checkpointer("vgg16_async", comm, path=tmp,
+                                              use_async=True)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        lazy(trainer)
+        stall_ms = (time.perf_counter() - t) * 1e3
+        lazy.wait_until_finished()
+        commit_ms = (time.perf_counter() - t) * 1e3
+        lazy.finalize()
+        with torch.no_grad():
+            for p in model.parameters():
+                p.add_(1.0)
+            for p in opt.params:
+                opt.state[p]["momentum_buffer"].add_(1.0)
+        trainer.iteration = 0
+        fresh = create_multi_node_checkpointer("vgg16", comm, path=tmp)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        got = fresh.restore_trainer(trainer)
+        torch.cuda.synchronize()
+        resume_ms = (time.perf_counter() - t) * 1e3
+    check(got == 1 and trainer.iteration == 1, f"resumed at {got}")
+    for k, v in model.state_dict().items():
+        check(torch.equal(v, saved[k]), f"restored {k} differs from saved")
+    for p, m in zip(opt.params, momentum):
+        check(torch.equal(opt.state[p]["momentum_buffer"], m),
+              "restored momentum differs from saved")
+    out = {"bytes": nbytes, "save_ms": save_ms,
+           "save_gb_per_s": nbytes / save_ms / 1e6,
+           "save_to_host_ms": host_ms, "save_sha256_ms": sha_ms,
+           "async_stall_ms": stall_ms, "async_commit_ms": commit_ms,
+           "resume_ms": resume_ms}
+    log("vgg16 checkpoint: " + json.dumps(out))
+    return out
+
+
+def vgg16_train_phase():
+    """VGG16 at full width (batch 64, 224^2, 1000 classes) through
+    create_communicator("pure_nccl", allreduce_grad_dtype=bf16) ->
+    create_multi_node_optimizer(SGD momentum) -> build_train_step on a
+    1-rank NCCL group, dropout on (one generator); K1's count set to 0
+    just before the timed steps and read just after; a profiled step;
+    then the prefetch A/B and the checkpointer on the same state."""
+    import torch.distributed as dist
+
+    from chainermn_tpu_torch import (build_train_step, create_communicator,
+                                     create_multi_node_optimizer)
+    from chainermn_tpu_torch.models import VGG16, flax_ordered_parameters
+    from chainermn_tpu_torch.ops.losses import softmax_cross_entropy
+    from chainermn_tpu_torch.utils import SyntheticImageDataset
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        comm = create_communicator("pure_nccl",
+                                   allreduce_grad_dtype=torch.bfloat16)
+        t0 = time.perf_counter()
+        model = VGG16(num_classes=N_CLASSES).to(comm.device)
+        comm.bcast_data(model)
+        opt = create_multi_node_optimizer(torch.optim.SGD(
+            [p for _, p in flax_ordered_parameters(model)], lr=IMAGE_LR,
+            momentum=0.9), comm)
+        gen = torch.Generator(device=comm.device).manual_seed(SEED)
+        step = build_train_step(
+            comm, lambda b: softmax_cross_entropy(
+                model(b[0], generator=gen), b[1]), opt)
+        plan = opt.wire_plan()
+        n_params = sum(p.numel() for p in model.parameters())
+        batch = image_batch(comm.device, VGG_BATCH)
+        log(f"vgg16: {n_params} params; wire {opt.wire.codec}, "
+            f"{plan.describe()}; set up in {time.perf_counter() - t0:.1f}s")
+        check(np.isfinite(float(step(batch)["loss"])),
+              "warm-up loss not finite")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        # the main path: every count set to 0 just before, read just after
+        fcs.fused_cast_scale.launches = 0
+        losses, times = timed_steps(step, batch, VGG_STEPS)
+        launches = fcs.fused_cast_scale.launches
+        peak = torch.cuda.max_memory_allocated()
+        cast_exact_covering("vgg16", [b.size for b in plan.buckets])
+        want = 2 * plan.n_buckets * VGG_STEPS
+        check(launches == want, f"vgg16 fused_cast_scale launches {launches}"
+              f" != 2 x {plan.n_buckets} buckets x {VGG_STEPS} steps")
+        check(all(np.isfinite(losses)), f"non-finite loss: {losses}")
+        median_ms = float(np.median(times))
+        ips = VGG_BATCH / (median_ms / 1e3)
+        log(f"vgg16 bf16 wire: {VGG_STEPS} steps of {VGG_BATCH} x {IMAGE}^2"
+            f": losses {losses}; step ms {[round(t, 3) for t in times]} "
+            f"(median {median_ms:.3f}); {ips:.1f} images/s; peak memory "
+            f"{peak / 2**30:.2f} GiB; fused_cast_scale launches {launches} "
+            f"= 2 x {plan.n_buckets} buckets x {VGG_STEPS} steps")
+        busy, wall, idle, shares = image_step_profile("vgg16", step, batch,
+                                                      median_ms)
+
+        # an in-memory dataset, made once: the feed's host cost is the
+        # collation and the copies, not numpy's generator
+        t0 = time.perf_counter()
+        synth = SyntheticImageDataset(FEED_BATCHES * VGG_BATCH,
+                                      shape=(IMAGE, IMAGE, 3),
+                                      n_classes=min(N_CLASSES, 64), seed=0)
+        dataset = [synth[i] for i in range(len(synth))]
+        log(f"vgg16 feed dataset: {len(dataset)} images made in "
+            f"{time.perf_counter() - t0:.1f}s")
+        feeds = [feed_phase(step, model, dataset, d) for d in (0, 2, 2, 0)]
+        ckpt = checkpoint_phase(comm, model, opt, step, dataset)
+        return {"launches": launches, "steps": VGG_STEPS,
+                "buckets": plan.n_buckets, "losses": losses,
+                "step_ms": times, "median_step_ms": median_ms,
+                "images_per_s": ips, "peak_gib": peak / 2**30,
+                "device_busy_ms": busy, "profiled_step_ms": wall,
+                "idle_share": idle,
+                "device_ms_by_kind": {k: v[0] for k, v in shares.items()},
+                "feed": feeds, "checkpoint": ckpt}
+    finally:
+        dist.destroy_process_group()
+
+
+class RecordingDataset:
+    """A dataset that records the indices it is asked for, in order."""
+
+    def __init__(self, base):
+        self.base = base
+        self.seen = []
+
+    def __len__(self):
+        return len(self.base)
+
+    def __getitem__(self, i):
+        self.seen.append(int(i))
+        return self.base[i]
+
+
+def twin(argv, datasets=None):
+    """train_imagenet.main(argv) with its output captured and logged:
+    (log entries, stdout, K1 launches)."""
+    import contextlib
+    import io
+
+    from chainermn_tpu_torch.examples import train_imagenet
+
+    buf = io.StringIO()
+    fcs.fused_cast_scale.launches = 0
+    with contextlib.redirect_stdout(buf):
+        entries = train_imagenet.main(argv, datasets=datasets)
+    launches = fcs.fused_cast_scale.launches
+    out = buf.getvalue()
+    for line in out.strip().splitlines():
+        log("  | " + line)
+    return entries, out, launches
+
+
+def wire_bucket_sizes(stdout):
+    """The bucket sizes of the wire plan the twin prints."""
+    line = next(ln for ln in stdout.splitlines() if ln.startswith("wire "))
+    return [int(n) for n in re.findall(r"\[\d+\][a-z]+\d*x(\d+)", line)]
+
+
+def checkpointed_twin_phase():
+    """The ImageNet twin with VGG16 (batch 64, bf16 wire, prefetch 2,
+    --checkpoint) for one epoch of TWIN_EPOCH_BATCHES batches, then again
+    with --epoch 2: it must resume where the first run's snapshot is and
+    draw the uninterrupted run's next batches (dataset indices, against
+    a third run of 2 epochs from scratch); a snapshot with one flipped
+    byte is not elected; then the other archs for a few iterations."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from chainermn_tpu_torch import (create_communicator,
+                                     create_multi_node_checkpointer)
+    from chainermn_tpu_torch.utils import SyntheticImageDataset
+
+    n = TWIN_EPOCH_BATCHES * VGG_BATCH
+    shape = (IMAGE, IMAGE, 3)
+    val = SyntheticImageDataset(VGG_BATCH, shape=shape, n_classes=min(N_CLASSES, 64), seed=1)
+    size = ["--image-size", str(IMAGE), "--num-classes", str(N_CLASSES)]
+    base = ["--arch", "vgg16", "--batchsize", str(VGG_BATCH),
+            "--allreduce-grad-dtype", "bfloat16", "--prefetch", "2",
+            "--lr", str(IMAGE_LR)] + size
+    here = os.getcwd()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            runs = []
+            for name, epochs in (("twin", 1), ("twin", 2), ("plain", 2)):
+                train = RecordingDataset(SyntheticImageDataset(
+                    n, shape=shape, n_classes=min(N_CLASSES, 64), seed=0))
+                t = time.perf_counter()
+                entries, stdout, launches = twin(
+                    base + ["--checkpoint", name, "--epoch", str(epochs)],
+                    datasets=(train, val))
+                runs.append({"entries": entries, "stdout": stdout,
+                             "launches": launches, "seen": train.seen,
+                             "wall_s": time.perf_counter() - t})
+            first, resumed, plain = runs
+            end1 = first["entries"][-1]["iteration"]
+            check(end1 == TWIN_EPOCH_BATCHES + 1,
+                  f"first run ended at {end1}")
+            check(f"resumed from iteration {end1}" in resumed["stdout"],
+                  "the second run did not resume from the first's snapshot")
+            end2 = resumed["entries"][-1]["iteration"]
+            check(end2 == plain["entries"][-1]["iteration"] == 2 * end1 - 1,
+                  f"resumed run ended at {end2}")
+            k = end2 - end1  # batches the resumed run consumed
+            got = resumed["seen"][:k * VGG_BATCH]
+            want = plain["seen"][end1 * VGG_BATCH:end2 * VGG_BATCH]
+            check(got == want, "the resumed run's batches are not the "
+                  "uninterrupted run's")
+            sizes = wire_bucket_sizes(first["stdout"])
+            cast_exact_covering("vgg16 twin", sizes)
+            buckets = len(sizes)
+            for r in runs:
+                its = (r["entries"][-1]["iteration"]
+                       - (end1 if r is resumed else 0))
+                check(r["launches"] == 2 * buckets * its,
+                      f"twin K1 launches {r['launches']} != 2 x {buckets} x "
+                      f"{its}")
+                check(all(np.isfinite(e[key]) for e in r["entries"]
+                          for key in ("loss", "val/loss")),
+                      f"non-finite twin losses: {r['entries']}")
+            # a flipped byte drops the newest step from the inventory (the
+            # agreement is host work: a gloo group)
+            dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                                    world_size=1)
+            try:
+                comm = create_communicator("pure_nccl")
+                ckpt = create_multi_node_checkpointer("twin", comm)
+                newest = ckpt.newest_common_step()
+                check(newest == end2, f"newest step {newest} != {end2}")
+                path = os.path.join("checkpoints", "twin",
+                                    f"step_{newest:012d}", "tensors.pt")
+                with open(path, "r+b") as f:
+                    f.seek(os.path.getsize(path) // 2)
+                    byte = f.read(1)
+                    f.seek(-1, os.SEEK_CUR)
+                    f.write(bytes([byte[0] ^ 0x10]))
+                elected = create_multi_node_checkpointer(
+                    "twin", comm).newest_common_step()
+                check(elected == end1, f"a corrupt step was elected: {elected}")
+            finally:
+                dist.destroy_process_group()
+            out["vgg16_twin"] = {
+                "first_end": end1, "resumed_end": end2,
+                "batches_match": True, "corrupt_elected": elected,
+                "buckets": buckets,
+                "launches": [r["launches"] for r in runs],
+                "wall_s": [r["wall_s"] for r in runs],
+                "final": [r["entries"][-1] for r in runs]}
+            log("vgg16 twin checkpointed: " + json.dumps(out["vgg16_twin"]))
+
+            out["archs"] = {}
+            for tag in OTHER_ARCHS:
+                entries, stdout, launches = twin(
+                    ["--arch"] + tag.split() + size + [
+                        "--batchsize", str(VGG_BATCH), "--n-train",
+                        str(ARCH_BATCHES_AN_EPOCH * VGG_BATCH), "--n-val",
+                        str(VGG_BATCH), "--allreduce-grad-dtype", "bfloat16",
+                        "--lr", str(IMAGE_LR)])
+                final = entries[-1]
+                its = final["iteration"]
+                sizes = wire_bucket_sizes(stdout)
+                cast_exact_covering(f"twin {tag}", sizes)
+                buckets = len(sizes)
+                check(its == ARCH_BATCHES_AN_EPOCH + 1, f"{tag}: {its} its")
+                check(np.isfinite(final["loss"])
+                      and np.isfinite(final["val/loss"]),
+                      f"{tag}: non-finite losses {final}")
+                check(launches == 2 * buckets * its,
+                      f"{tag}: K1 launches {launches} != 2 x {buckets} x {its}")
+                out["archs"][tag] = {
+                    "iterations": its, "buckets": buckets,
+                    "launches": launches, "loss": final["loss"],
+                    "val_loss": final["val/loss"],
+                    "step_ms": 1e3 * VGG_BATCH / final["samples_per_sec"]}
+                log(f"twin {tag}: " + json.dumps(out["archs"][tag]))
+        finally:
+            os.chdir(here)
+    return out
+
+
 def build_all():
     """Every kernel source built from the checkout, in parallel (one
     nvcc each); prints build time, registers, shared memory and spills
@@ -1469,6 +1938,7 @@ def kernel_record(name, source, replaces, launches, r, dtype):
 
 
 def main():
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on an "
               "NVIDIA card", file=sys.stderr)
@@ -1508,6 +1978,8 @@ def main():
     mnbn_path = mnbn_train_phase()
     check(mnbn_path["buckets"] == plan.n_buckets, "MNBN ResNet-50 plan drifted")
     trainer_path = trainer_phase(plan.n_buckets)
+    vgg_path = vgg16_train_phase()
+    archs_path = checkpointed_twin_phase()
 
     log("serve summary: " + json.dumps(serve_path))
     log("train summary: " + json.dumps(train_path))
@@ -1520,6 +1992,8 @@ def main():
                       for k in ("step_ms", "images_per_s", "device_busy_ms",
                                 "idle_share", "peak_gib")}))
     log("trainer summary: " + json.dumps(trainer_path))
+    log("vgg16 summary: " + json.dumps(vgg_path))
+    log("image archs summary: " + json.dumps(archs_path))
     log("flash_decode float32: " + json.dumps(kern[torch.float32]))
     log("flash attention float32: " + json.dumps(flash[torch.float32]))
     # the kernels' record: each main path's type (bf16) at its shapes
@@ -1546,13 +2020,18 @@ def main():
     records[-1].update(tolerance="bit-exact", per_step_ms=cast["per_step_ms"],
                        per_step_bound_ms=cast["per_step_bound_ms"],
                        bucket_sizes=[b.size for b in plan.buckets],
+                       max_abs_err=max(r["max_abs_err"]
+                                       for r in CAST_EXACT.values()),
+                       exact_by_path=CAST_EXACT,
                        launches_by_path={
                            "resnet50": image_path["launches"],
                            "mnbn_resnet50_bf16": mnbn_path["launches"],
+                           "vgg16": vgg_path["launches"],
                            "mnbn_resnet50_bf16_ef":
                                mnbn_path["lossy_wires"]["bf16_ef"]["launches"],
                            "mnbn_resnet50_int8_ef":
                                mnbn_path["lossy_wires"]["int8_ef"]["launches"]})
+    log(f"chip_smoke wall time: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,8 +2,10 @@
 ``chip_smoke.py`` imports JAX, flax, optax or the JAX package, importing
 the package loads no subpackage, and the serving, LM training and image
 training paths (synchronized BatchNorm over the hierarchical
-communicator and the int8 wire with error feedback among them) run with
-those modules made unimportable."""
+communicator and the int8 wire with error feedback among them; the
+other image archs; the prefetching input pipeline, the synchronized and
+multi-node iterators and the checkpointer with a resume) run with those
+modules made unimportable."""
 
 import ast
 import os
@@ -128,15 +130,49 @@ log = train_imagenet.main(["--device", "cpu", "--arch", "resnet18",
                            "--num-classes", "10", "--mnbn",
                            "--communicator", "hierarchical"])
 assert np.isfinite(log[-1]["val/loss"])
+for arch in ("alex", "googlenet", "googlenetbn", "nin", "vgg16"):
+    for epochs in ("1", "2"):
+        log = train_imagenet.main(["--device", "cpu", "--arch", arch,
+                                   "--image-size", "96", "--n-train", "8",
+                                   "--n-val", "4", "--batchsize", "4",
+                                   "--num-classes", "10", "--lr", "0.01",
+                                   "--checkpoint", "iso_" + arch,
+                                   "--epoch", epochs])
+    assert log[-1]["iteration"] == 5 and np.isfinite(log[-1]["val/loss"])
+
+from chainermn_tpu_torch.datasets import (create_empty_dataset, rescatter,
+                                          scatter_dataset_all)
+from chainermn_tpu_torch.iterators import (
+    SerialIterator, create_multi_node_iterator, create_synchronized_iterator,
+    device_placer, prefetch_to_device)
+
+dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                        world_size=1)
+comm = chainermn_tpu_torch.create_communicator("pure_nccl")
+data = [(np.full(2, i, np.float32), np.int32(i)) for i in range(12)]
+it = create_multi_node_iterator(create_synchronized_iterator(
+    SerialIterator(data, 4), comm), comm)
+it = prefetch_to_device(it, device_placer("cpu"))
+assert next(it)[0].shape == (4, 2) and len(create_empty_dataset(data)) == 12
+shards = scatter_dataset_all(data, comm, shuffle=True)
+assert len(rescatter(shards[0], (1.0,))) == 12
+ckpt = chainermn_tpu_torch.create_multi_node_checkpointer("iso", comm,
+                                                          use_async=True)
+ckpt.save(1, {{"x": torch.ones(3), "it": it.serialize()}})
+assert ckpt.resume()[0] == 1
+ckpt.finalize()
+dist.destroy_process_group()
 assert not any(m.split(".")[0] in BANNED for m in sys.modules)
 print("ok")
 """
 
 
 def test_port_imports_and_serves_with_jax_blocked(tmp_path):
-    """The serving path, a training step, and the MNIST and ImageNet
-    examples' twins (which write their logs under the working
-    directory) run with JAX and the JAX package unimportable."""
+    """The serving path, a training step, the MNIST and ImageNet
+    examples' twins (which write their logs and checkpoints under the
+    working directory; every arch, each resumed once), the iterators and
+    the async checkpointer run with JAX and the JAX package
+    unimportable."""
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
     r = subprocess.run(

@@ -668,6 +668,108 @@ def mnbn_resnet_worker(rank, world_size, variables, data, steps, lr,
             "codec": opt.wire.codec}
 
 
+def mnbn_googlenet_worker(rank, world_size, variables, data, steps, lr,
+                          momentum, env):
+    """The synchronized GoogLeNetBN's path (fp32, dropout off): the
+    model from the flax variables of the synchronized JAX model through
+    create_communicator("hierarchical") -> create_mnbn_model ->
+    create_multi_node_optimizer(SGD momentum) ->
+    build_train_step(model_state=running statistics)."""
+    os.environ.update(env)
+    import chainermn_tpu_torch as cmn
+    from chainermn_tpu_torch.comm_wire import plan_wire
+    from chainermn_tpu_torch.functions import allreduce_mean
+    from chainermn_tpu_torch.links import create_mnbn_model
+    from chainermn_tpu_torch.models import (
+        GoogLeNetBN, flax_leaf_specs, flax_ordered_parameters,
+        googlenet_params_from_flax)
+    from chainermn_tpu_torch.ops.losses import softmax_cross_entropy
+
+    comm = cmn.create_communicator("hierarchical")
+    model = create_mnbn_model(
+        GoogLeNetBN(num_classes=10, dtype=torch.float32), comm)
+    model.load_state_dict(googlenet_params_from_flax(variables))
+    comm.bcast_data(model)
+    x, y = data
+    shard = cmn.scatter_dataset(list(zip(x, y)), comm, shuffle=True, seed=5)
+    opt = cmn.create_multi_node_optimizer(torch.optim.SGD(
+        [p for _, p in flax_ordered_parameters(model)], lr=lr,
+        momentum=momentum), comm)
+    step = cmn.build_train_step(
+        comm, lambda b: softmax_cross_entropy(
+            model(b[0], deterministic=True), b[1]), opt,
+        model_state=list(model.buffers()))
+    per = len(shard) // steps
+    losses, calls = [], []
+    for i in range(steps):
+        rows = [shard[j] for j in range(i * per, (i + 1) * per)]
+        batch = (torch.from_numpy(np.stack([r[0] for r in rows])),
+                 torch.from_numpy(np.stack([r[1] for r in rows])))
+        n0 = allreduce_mean.calls
+        losses.append(float(step(batch)["loss"]))
+        calls.append(allreduce_mean.calls - n0)
+    return {"indices": shard.indices.copy(), "losses": losses,
+            "calls": calls,
+            "state": {k: v.detach().numpy().copy()
+                      for k, v in model.state_dict().items()},
+            "flax_plan_hash": plan_wire(flax_leaf_specs(model), opt.wire,
+                                        comm).plan_hash()}
+
+
+def input_pipeline_worker(rank, world_size, data, weights):
+    """The input pipeline at this world size: the agreed seed, two
+    synchronized iterators (each rank starting from its own seed), a
+    multi-node iterator over rank-shifted streams, every rank's shard at
+    once and this rank's shard rescattered under ``weights``."""
+    import chainermn_tpu_torch as cmn
+    from chainermn_tpu_torch.datasets import rescatter, scatter_dataset_all
+    from chainermn_tpu_torch.iterators import (
+        SerialIterator, create_multi_node_iterator,
+        create_synchronized_iterator)
+
+    comm = cmn.create_communicator("pure_nccl")
+    ds = [(np.full(1, i), np.int32(i % 3)) for i in range(16)]
+    orders = []
+    for _ in range(2):
+        it = create_synchronized_iterator(
+            SerialIterator(ds, 4, shuffle=True, seed=rank), comm)
+        orders.append([next(it)[0].ravel().tolist() for _ in range(12)])
+    shifted = [(np.full(1, i + 100 * rank), np.int32(0)) for i in range(16)]
+    mn = create_multi_node_iterator(SerialIterator(shifted, 4, shuffle=False),
+                                    comm)
+    stream = [next(mn)[0].ravel().tolist() for _ in range(5)]
+    shard = cmn.scatter_dataset(data, comm, shuffle=True, seed=7)
+    return {"sync_seed": comm.sync_seed, "orders": orders,
+            "master_stream": stream, "batch_size": mn.batch_size,
+            "all": [list(s.indices) for s in scatter_dataset_all(
+                data, comm, shuffle=True, seed=7)],
+            "shard": list(shard.indices),
+            "rescattered": list(rescatter(shard, weights).indices)}
+
+
+def checkpoint_agreement_worker(rank, world_size, root, drop_newest_on):
+    """Each rank saves steps 1-3 under ``root``; rank
+    ``drop_newest_on`` then loses its newest step; the agreement elects
+    the newest step every rank holds, and resume loads it."""
+    import shutil
+
+    import chainermn_tpu_torch as cmn
+
+    comm = cmn.create_communicator("pure_nccl")
+    ckpt = cmn.create_multi_node_checkpointer("agree", comm, path=root)
+    for s in (1, 2, 3):
+        ckpt.save(s, {"w": torch.full((3,), float(s + 10 * rank)),
+                      "step": s})
+    own = ckpt._available_steps()
+    comm.barrier()
+    if rank == drop_newest_on:
+        shutil.rmtree(ckpt._step_dir(3))
+    comm.barrier()
+    step, state = ckpt.resume()
+    return {"own": own, "root": ckpt._root, "newest": step,
+            "w": state["w"].tolist(), "step": state["step"]}
+
+
 class _Local:
     """A communicator of one rank's own view: the evaluator's per-rank
     metrics before the mean."""

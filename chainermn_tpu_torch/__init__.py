@@ -31,15 +31,18 @@ checkpointer (``create_multi_node_checkpointer``), the input pipeline
 (``iterators.prefetch_to_device`` on a side CUDA stream, the
 synchronized and multi-node iterators) and the ImageNet example's other
 architectures (``models.VGG16``, ``AlexNet``, ``NIN``, ``GoogLeNet``,
-``GoogLeNetBN``).
+``GoogLeNetBN``); and model parallelism (``MultiNodeChainList``,
+``functions.send``/``recv``/``pseudo_connect`` and the differentiable
+collectives, ``links.create_multi_node_n_step_rnn``,
+``models.Seq2Seq``, ``parallel.build_pipeline_train_step``).
 """
 
 import importlib
 
 _SUBPACKAGES = ("comm_wire", "communicators", "datasets", "examples",
                 "extensions", "functions", "global_except_hook", "iterators",
-                "links", "models", "observability", "ops", "resilience",
-                "serving", "training", "utils")
+                "link", "links", "models", "observability", "ops",
+                "parallel", "resilience", "serving", "training", "utils")
 
 # top-level entry points, as chainermn_tpu exports them: name -> module
 _ENTRY_POINTS = {
@@ -52,6 +55,7 @@ _ENTRY_POINTS = {
     "create_multi_node_iterator": "iterators",
     "create_synchronized_iterator": "iterators",
     "create_empty_dataset": "datasets",
+    "MultiNodeChainList": "link",
 }
 
 __all__ = list(_SUBPACKAGES) + list(_ENTRY_POINTS)

@@ -19,13 +19,17 @@ returns what ChainerMN's MPI call left in this rank's buffer:
   ``(n,)`` tensor, ``n`` divisible by ``size`` (``sum`` or ``mean``);
 * the ``*_obj`` forms on the c10d object collectives (pickled), and
   ``sync_seed``, one seed agreed by every rank;
+* point to point, as ChainerMN's per-rank ``send``/``recv``:
+  ``send(x, dest)`` of a tensor or a tuple of tensors, preceded by one
+  small int64 header (arity, then each tensor's dtype, ndim and shape) so
+  that ``recv(source)`` can allocate; ``sendrecv(x, dest, source)`` (both
+  at once, for rings); ``send_obj``/``recv_obj`` (pickled);
 * ``bcast_data(model)``: rank 0's parameters and buffers, in place;
 * ``allreduce_grad(model)``: every ``p.grad`` averaged in place.
 
 A communicator spans the whole default process group, which the caller
-initialises (``torch.distributed.init_process_group``).  ``split`` and
-``send``/``recv`` wait for the model-parallel slice (ROADMAP Queue 1,
-"Model parallelism").
+initialises (``torch.distributed.init_process_group``).  ``split``
+waits for ROADMAP Queue 1 "Communicators, tier 2".
 """
 
 from __future__ import annotations
@@ -43,6 +47,13 @@ REDUCE_OPS = ("sum", "mean", "max", "min", "prod")
 _DIST_OPS = {"sum": dist.ReduceOp.SUM, "mean": dist.ReduceOp.SUM,
              "max": dist.ReduceOp.MAX, "min": dist.ReduceOp.MIN,
              "prod": dist.ReduceOp.PRODUCT}
+
+# A point-to-point header: HEADER_SLOTS int64, [arity (-1: one bare
+# tensor), then per tensor its dtype's index in P2P_DTYPES, ndim, shape]
+HEADER_SLOTS = 64
+P2P_DTYPES = (torch.float32, torch.float64, torch.float16, torch.bfloat16,
+              torch.int64, torch.int32, torch.int16, torch.int8, torch.uint8,
+              torch.bool)
 
 
 def as_torch_dtype(dtype) -> Optional[torch.dtype]:
@@ -223,6 +234,78 @@ class CommunicatorBase:
 
     def barrier(self) -> None:
         dist.barrier(group=self._group)
+
+    # ------------------------------------------------------------------
+    # Point to point (one process per rank, as ChainerMN's MPI calls)
+    # ------------------------------------------------------------------
+    def send(self, x, dest: int) -> None:
+        """Send a tensor, or a tuple/list of tensors, to rank ``dest``:
+        one header, then one message per non-empty tensor."""
+        leaves = list(x) if isinstance(x, (tuple, list)) else [x]
+        if not leaves:
+            raise ValueError("send needs a tensor or a non-empty tuple")
+        header = [len(leaves) if isinstance(x, (tuple, list)) else -1]
+        for t in leaves:
+            if t.dtype not in P2P_DTYPES:
+                raise ValueError(f"send cannot carry {t.dtype}")
+            header += [P2P_DTYPES.index(t.dtype), t.dim(), *t.shape]
+        if len(header) > HEADER_SLOTS:
+            raise ValueError(f"send's header needs {len(header)} slots, "
+                             f"more than {HEADER_SLOTS}")
+        header += [0] * (HEADER_SLOTS - len(header))
+        dist.send(self._to_wire(torch.tensor(header, dtype=torch.int64,
+                                             device=leaves[0].device)),
+                  dest, group=self._group)
+        for t in leaves:
+            if t.numel():
+                dist.send(self._to_wire(t.detach()).contiguous(), dest,
+                          group=self._group)
+
+    def recv(self, source: int, device=None):
+        """What ``source`` sent with :meth:`send` (a tensor or a
+        tuple), on ``device`` (default: this rank's :attr:`device`)."""
+        device = torch.device(device) if device is not None else self.device
+        hdr = self._to_wire(torch.empty(HEADER_SLOTS, dtype=torch.int64,
+                                        device=device))
+        dist.recv(hdr, source, group=self._group)
+        header = hdr.tolist()
+        arity, pos, out = header[0], 1, []
+        for _ in range(max(arity, 1)):
+            dtype, ndim = P2P_DTYPES[header[pos]], header[pos + 1]
+            shape = header[pos + 2:pos + 2 + ndim]
+            pos += 2 + ndim
+            t = self._to_wire(torch.empty(shape, dtype=dtype, device=device))
+            if t.numel():
+                dist.recv(t, source, group=self._group)
+            out.append(t.to(device))
+        return out[0] if arity == -1 else tuple(out)
+
+    def sendrecv(self, x: torch.Tensor, dest: Optional[int],
+                 source: Optional[int]) -> Optional[torch.Tensor]:
+        """Send ``x`` to ``dest`` and receive a tensor of its shape and
+        dtype from ``source``, both posted at once, so that a ring or a
+        permutation cannot deadlock.  Either side may be None (nothing
+        sent, or None returned)."""
+        if dest == self._rank and source == self._rank:
+            return x.clone()
+        w = self._to_wire(x.detach()).contiguous()
+        out = None if source is None else torch.empty_like(w)
+        ops = ([] if dest is None else
+               [dist.P2POp(dist.isend, w, dest, group=self._group)])
+        if out is not None:
+            ops.append(dist.P2POp(dist.irecv, out, source, group=self._group))
+        if ops:
+            for work in dist.batch_isend_irecv(ops):
+                work.wait()
+        return None if out is None else out.to(x.device)
+
+    def send_obj(self, obj: Any, dest: int) -> None:
+        dist.send_object_list([obj], dest, group=self._group)
+
+    def recv_obj(self, source: int) -> Any:
+        box = [None]
+        dist.recv_object_list(box, source, group=self._group)
+        return box[0]
 
     # ------------------------------------------------------------------
     # Object collectives (pickled, on the c10d object collectives)

@@ -352,3 +352,40 @@ def googlenet_params_from_flax(variables) -> Dict[str, torch.Tensor]:
     ``batch_stats`` of ``GoogLeNetBN``, plain or synchronized) onto the
     port's ``GoogLeNet`` ``state_dict``."""
     return _cnn_params_from_flax(variables, "GoogLeNet")
+
+
+# the last name of a flax leaf of the seq2seq family -> the port's name
+# and layout (``wh_{l}`` is kept in ``nn.LSTM``'s ``(4H, H)`` layout)
+_SEQ2SEQ_NAMES = {"embedding": ("weight", AS_IS), "kernel": ("weight", DENSE),
+                  "bias": ("bias", AS_IS)}
+
+
+def _flat_items(tree, prefix=()):
+    for k in sorted(tree):
+        if isinstance(tree[k], dict):
+            yield from _flat_items(tree[k], prefix + (k,))
+        else:
+            yield prefix + (k,), tree[k]
+
+
+def seq2seq_params_from_flax(params) -> Dict[str, torch.Tensor]:
+    """Map a flax tree of the seq2seq family (``{'params': ...}`` or the
+    collection itself, arrays as numpy) onto the port's ``state_dict``
+    keys: an ``LSTMStack`` (``wx_{l}`` kernel and bias, ``wh_{l}``), an
+    ``Encoder`` (``embed_x``, ``lstm``), a ``Decoder`` (``embed_y``,
+    ``lstm``, ``W``), a ``Seq2Seq`` (``encoder``, ``decoder``), the
+    ``seq2seq_mp1`` stages (one ``encoder`` or ``decoder`` each), a
+    ``MultiNodeNStepRNN`` (its ``LSTMStack_0`` folded away), and the
+    pipeline's stacked stage parameters (a leading stage axis; a Dense
+    kernel swaps its last two axes)."""
+    p = params["params"] if "params" in params else params
+    out = {}
+    for path, a in _flat_items(p):
+        mods, name = [m for m in path[:-1] if m != "LSTMStack_0"], path[-1]
+        key, layout = (_SEQ2SEQ_NAMES[name] if name in _SEQ2SEQ_NAMES
+                       else (name, DENSE))  # wh_{l}: (H, 4H) -> (4H, H)
+        a = np.array(a, dtype=np.float32)
+        if layout == DENSE:
+            a = np.swapaxes(a, -1, -2)
+        out[".".join(mods + [key])] = torch.from_numpy(np.ascontiguousarray(a))
+    return out

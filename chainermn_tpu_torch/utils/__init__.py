@@ -1,5 +1,7 @@
 """Utilities: the synthetic datasets of the examples."""
 
-from .toy_datasets import SyntheticImageDataset, get_mnist
+from .toy_datasets import (SyntheticImageDataset,
+                           SyntheticTranslationDataset, get_mnist)
 
-__all__ = ["SyntheticImageDataset", "get_mnist"]
+__all__ = ["SyntheticImageDataset", "SyntheticTranslationDataset",
+           "get_mnist"]

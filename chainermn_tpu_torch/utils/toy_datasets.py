@@ -1,7 +1,8 @@
-"""Toy datasets (port of ``chainermn_tpu/utils/toy_datasets.py``'s image
-part): deterministic synthetic classification sets with the shapes of
-MNIST and ImageNet and a learnable signal (class centroids + noise), so
-the examples' loss has to go down.  The arrays are the JAX package's,
+"""Toy datasets (port of ``chainermn_tpu/utils/toy_datasets.py``):
+deterministic synthetic classification sets with the shapes of MNIST
+and ImageNet and a learnable signal (class centroids + noise), so the
+examples' loss has to go down, and the toy translation corpus of the
+seq2seq examples.  The arrays are the JAX package's,
 bit for bit, from the same seeds: both are numpy.  A real ``mnist.npz``
 is read where one is given (``path=`` or ``CHAINERMN_TORCH_MNIST``).
 """
@@ -52,6 +53,49 @@ class SyntheticImageDataset:
         x = self._centroids[y] + self._noise * rng.randn(*self._shape).astype(
             self._dtype)
         return x.astype(self._dtype), np.int32(y)
+
+
+class SyntheticTranslationDataset:
+    """Deterministic toy "translation" corpus for the seq2seq examples,
+    in place of ChainerMN's WMT En-Fr: each source is a random token
+    sequence; its target the reversed source mapped through a fixed
+    vocabulary permutation (``RandomState(9876)``), then EOS and PAD.
+    Items are ``(src (max_len,) int32, tgt (max_len + 1,) int32)``."""
+
+    def __init__(self, n: int, vocab: int = 32, max_len: int = 8,
+                 seed: int = 0):
+        from ..models.seq2seq import EOS, N_SPECIAL, PAD
+
+        self._pad, self._eos, self._n_special = PAD, EOS, N_SPECIAL
+        self._n = n
+        self._vocab = vocab
+        self._max_len = max_len
+        self._seed = seed
+        # the "language": a fixed permutation of the non-special tokens
+        perm = np.random.RandomState(9876).permutation(vocab - N_SPECIAL)
+        self._map = np.concatenate(
+            [np.arange(N_SPECIAL), perm + N_SPECIAL]).astype(np.int32)
+
+    def __len__(self) -> int:
+        return self._n
+
+    def __getitem__(self, i):
+        if isinstance(i, slice):
+            return [self[j] for j in range(*i.indices(self._n))]
+        if not -self._n <= i < self._n:
+            raise IndexError(i)
+        if i < 0:
+            i += self._n
+        rng = np.random.RandomState((self._seed * 999_983 + i) % (2**31))
+        length = rng.randint(2, self._max_len + 1)
+        src = rng.randint(self._n_special, self._vocab, size=length)
+        tgt = self._map[src[::-1]]
+        src_p = np.full((self._max_len,), self._pad, np.int32)
+        src_p[:length] = src
+        tgt_p = np.full((self._max_len + 1,), self._pad, np.int32)
+        tgt_p[:length] = tgt
+        tgt_p[length] = self._eos
+        return src_p, tgt_p
 
 
 def get_mnist(path: Optional[str] = None, n_train: int = 60000,

@@ -83,7 +83,20 @@ Run from the repository root, with one card.  Phases:
    K1's count set to 0 just before and read just after.  After each of
    these runs, outside its counting window, K1 is held bit for bit
    against its plain version at every bucket size of the run's wire
-   plan that no earlier phase held.
+   plan that no earlier phase held;
+12. model parallelism: the JAX bench's seq2seq configuration at full
+   width (bench.py:991-994: vocab 8192, 512 units, 2 LSTM layers,
+   sequence 40, batch 64, Adam 1e-3) through ``MultiNodeChainList`` with
+   the ``seq2seq_mp1`` encoder|decoder split (both stages on the one
+   card), TF32 off: the chain's loss and gradients against the
+   monolithic ``Seq2Seq`` on the same weights, 1 + 6 steps (median step
+   ms, tokens/s, peak memory), a profiled step (device ms and launches by
+   kind, idle share), greedy ``translate`` of one batch timed per token,
+   a one-stage ``build_pipeline_train_step`` with 4 microbatches held
+   against the unpipelined step; then the seq2seq examples' twins
+   (data-parallel through ``Trainer``, and ``seq2seq_mp1``).  No kernel
+   of the port is on this path (the LSTM is cuDNN's, as XLA generated
+   the JAX one).
 
 Any failed check raises, so the script exits non-zero.  Without CUDA it
 exits non-zero before printing any result.  The last two lines are the
@@ -1064,12 +1077,12 @@ KERNEL_KINDS = (
 )
 
 
-def kernel_categories(kernels):
+def kernel_categories(kernels, kinds=KERNEL_KINDS):
     """{kind: (device ms, launches)} of profiled kernels."""
-    out = {k: [0.0, 0] for k, _ in KERNEL_KINDS}
+    out = {k: [0.0, 0] for k, _ in kinds}
     for e in kernels:
         name = e.key.lower()
-        kind = next(k for k, pats in KERNEL_KINDS
+        kind = next(k for k, pats in kinds
                     if any(p in name for p in pats))
         out[kind][0] += e.self_device_time_total / 1e3
         out[kind][1] += e.count
@@ -1844,6 +1857,259 @@ def checkpointed_twin_phase():
     return out
 
 
+# Phase 12, model parallelism: the JAX bench's seq2seq configuration
+# (bench.py:991-994, config_seq2seq_mp) and its seq2seq_mp1 split; the
+# pipeline's microbatches (benchmarks/pipeline_seq2seq.py's n_micro)
+S2S_VOCAB, S2S_UNITS, S2S_LAYERS, S2S_SEQ, S2S_BATCH = 8192, 512, 2, 40, 64
+S2S_LR, S2S_STEPS, S2S_MICRO = 1e-3, 6, 4
+# the chain at world 1 runs the monolithic model's modules in the same
+# order on the same card: loss and gradients within 1e-6 (relative)
+S2S_CHAIN_GAP = 1e-6
+# the one-stage pipeline sums its 4 microbatches' token losses where the
+# unpipelined step takes one mean (and cuDNN picks per batch size):
+# losses within 1e-5 relative, parameters after the steps within 3e-5
+# with 99.9 % of entries within 1e-6 (the CPU parity tests' Adam bound)
+S2S_PIPE_LOSS_GAP, S2S_PIPE_STEPS = 1e-5, 3
+# kinds of kernel in a seq2seq step, by name (first match wins)
+S2S_KINDS = (
+    ("LSTM (cuDNN)", ("rnn", "lstm")),
+    ("GEMM", ("gemm", "nvjet", "cutlass", "sm90_", "sm80_", "xmma")),
+    ("softmax and loss", ("softmax", "nll", "cross_entropy")),
+    ("embedding", ("embedding",)),
+    ("optimizer", ("multi_tensor_apply",)),
+    ("reduction", ("reduce_kernel",)),
+    ("elementwise and copies", ("",)),
+)
+
+
+def s2s_batch(device, low=1):
+    """The bench's resident batch: source and target tokens drawn from
+    RandomState(SEED) in [low, vocab)."""
+    rng = np.random.RandomState(SEED)
+    shape = (S2S_BATCH, S2S_SEQ)
+    return tuple(torch.from_numpy(rng.randint(low, S2S_VOCAB, shape)).to(device)
+                 for _ in range(2))
+
+
+def s2s_loss(logits, tgt):
+    """bench.py's seq2seq loss: next-token cross entropy, the mean."""
+    return torch.nn.functional.cross_entropy(
+        logits[:, :-1].reshape(-1, logits.shape[-1]), tgt[:, 1:].reshape(-1))
+
+
+def rel_l2(a, b):
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def seq2seq_phase():
+    """The model-parallel main path on one card (see the module
+    docstring, phase 12)."""
+    import torch.distributed as dist
+
+    from chainermn_tpu_torch import create_communicator
+    from chainermn_tpu_torch.examples.train_seq2seq_mp1 import make_chain
+    from chainermn_tpu_torch.models import Seq2Seq, translate
+
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        comm = create_communicator("pure_nccl")
+        device = comm.device
+        t0 = time.perf_counter()
+        chain = make_chain(comm, S2S_VOCAB, S2S_UNITS, S2S_LAYERS)
+        enc, dec = chain.stage_modules
+        check(chain.stage_rank(0) == chain.stage_rank(1) == 0,
+              "both stages belong on rank 0 of a world of one")
+        opt = chain.optimizer(torch.optim.Adam, lr=S2S_LR)
+        step = chain.value_and_grad(s2s_loss)
+        src, tgt = s2s_batch(device)
+        x = [src, tgt]
+        n_params = sum(p.numel() for p in chain.parameters())
+        log(f"seq2seq: {n_params} params in 2 stages on {device}; vocab "
+            f"{S2S_VOCAB}, {S2S_UNITS} units, {S2S_LAYERS} layers, "
+            f"{S2S_BATCH} x {S2S_SEQ}; set up in "
+            f"{time.perf_counter() - t0:.1f}s")
+
+        # the chain against the monolithic model on the same weights
+        mono = Seq2Seq(S2S_VOCAB, S2S_VOCAB, S2S_UNITS, S2S_LAYERS).to(device)
+        mono.encoder.load_state_dict(enc.encoder.state_dict())
+        mono.decoder.load_state_dict(dec.decoder.state_dict())
+        opt.zero_grad()
+        loss_chain = float(step(x, tgt))
+        loss_mono = s2s_loss(mono(src, tgt), tgt)
+        loss_mono.backward()
+        grads = [p.grad for m in (enc.encoder, dec.decoder)
+                 for p in m.parameters()]
+        mono_grads = [p.grad for m in (mono.encoder, mono.decoder)
+                      for p in m.parameters()]
+        loss_gap = abs(loss_chain - loss_mono.item()) / abs(loss_mono.item())
+        grad_gap = max(rel_l2(a, b) for a, b in zip(grads, mono_grads))
+        log(f"seq2seq chain vs monolithic Seq2Seq (same weights, same "
+            f"card): loss {loss_chain:.7f} vs {loss_mono.item():.7f}, "
+            f"relative gap {loss_gap:.3e}; largest gradient gap {grad_gap:.3e}"
+            f" relative L2 over {len(grads)} arrays (bound {S2S_CHAIN_GAP})")
+        check(loss_gap <= S2S_CHAIN_GAP and grad_gap <= S2S_CHAIN_GAP,
+              f"chain vs monolithic: loss {loss_gap}, gradients {grad_gap}")
+        opt.step()  # the warm-up step
+
+        def train_step(_=None):
+            opt.zero_grad()
+            loss = step(x, tgt)
+            opt.step()
+            return {"loss": loss}
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, times = timed_steps(train_step, None, S2S_STEPS)
+        peak = torch.cuda.max_memory_allocated()
+        check(all(np.isfinite(losses)), f"non-finite seq2seq loss: {losses}")
+        median_ms = float(np.median(times))
+        tokens = S2S_BATCH * S2S_SEQ * 2  # enc + dec, the bench's count
+        tps = tokens / (median_ms / 1e3)
+        log(f"seq2seq chain: {S2S_STEPS} Adam steps: losses {losses}; step "
+            f"ms {[round(t, 3) for t in times]} (median {median_ms:.3f}); "
+            f"{tps:.1f} tokens/s ({tokens} a step); peak memory "
+            f"{peak / 2**30:.3f} GiB")
+        busy, wall, n_kernels, kernels = profile_train_step(train_step, None)
+        idle = 1 - busy / median_ms
+        shares = kernel_categories(kernels, S2S_KINDS)
+        log(f"profile seq2seq step: device busy {busy:.3f} ms in {n_kernels}"
+            f" kernel launches; the profiled step took {wall:.3f} ms, the "
+            f"unprofiled ones {median_ms:.3f} ms (median): idle share "
+            f"{idle:.1%} of an unprofiled step")
+        for e in kernels[:10]:
+            log(f"  {e.self_device_time_total / 1e3:9.3f} ms x{e.count:<4d} "
+                f"{e.key[:90]}")
+        log("profile seq2seq step by kind: " + ", ".join(
+            f"{k} {ms:.3f} ms ({ms / busy:.1%}, {n} launches)"
+            for k, (ms, n) in shares.items()))
+
+        # greedy translation of one batch, timed per token
+        mono.eval()
+        translate(mono, src[:2], max_length=2)  # warm-up
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        hyp = translate(mono, src, max_length=S2S_SEQ)  # ends on the host
+        tr_ms = (time.perf_counter() - t) * 1e3
+        check(hyp.shape == (S2S_BATCH, S2S_SEQ), f"translate {hyp.shape}")
+        log(f"seq2seq translate: {S2S_BATCH} sources x {S2S_SEQ} greedy "
+            f"steps in {tr_ms:.3f} ms: {tr_ms / S2S_SEQ:.3f} ms a step, "
+            f"{S2S_BATCH * S2S_SEQ / (tr_ms / 1e3):.1f} tokens/s")
+        pipe = seq2seq_pipeline_check(comm)
+        return {"params": n_params, "chain_loss_gap": loss_gap,
+                "chain_grad_gap": grad_gap, "losses": losses,
+                "step_ms": times, "median_step_ms": median_ms,
+                "tokens_per_s": tps, "peak_gib": peak / 2**30,
+                "device_busy_ms": busy, "profiled_step_ms": wall,
+                "launches": n_kernels, "idle_share": idle,
+                "device_ms_by_kind": {k: v[0] for k, v in shares.items()},
+                "launches_by_kind": {k: v[1] for k, v in shares.items()},
+                "translate_ms_per_step": tr_ms / S2S_SEQ, "pipeline": pipe}
+    finally:
+        dist.destroy_process_group()
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = flags
+
+
+def seq2seq_pipeline_check(comm):
+    """A one-stage build_pipeline_train_step (the encoder and the decoder
+    in one stage, S2S_MICRO microbatches) against the unpipelined step on
+    the same union parameters and batch, S2S_PIPE_STEPS Adam steps each,
+    timed; at world 1 that is all a card can show of the schedule."""
+    from chainermn_tpu_torch.parallel import (build_pipeline_train_step,
+                                              place_stage_params)
+    from chainermn_tpu_torch.parallel.seq2seq_pipeline import (
+        Seq2SeqStages, carry_width, pack_batch, pipeline_loss, union_params)
+
+    stages = Seq2SeqStages(comm, S2S_VOCAB, S2S_UNITS, S2S_LAYERS, S2S_SEQ)
+    stacked = union_params(stages.enc, stages.dec, 1)
+    src, ys = s2s_batch(comm.device, low=3)
+    packed = pack_batch(src, ys, S2S_MICRO,
+                        carry_width(S2S_UNITS, S2S_LAYERS, S2S_SEQ))
+    sp = place_stage_params(stacked, comm)
+    pstep = build_pipeline_train_step(
+        comm, stages, pipeline_loss, torch.optim.Adam(sp.values(), lr=S2S_LR),
+        n_micro=S2S_MICRO, remat=False)
+    twin = place_stage_params(stacked, comm)
+    topt = torch.optim.Adam(twin.values(), lr=S2S_LR)
+
+    def twin_step():
+        topt.zero_grad()
+        loss = stages.unpipelined_loss(twin, src, ys)
+        loss.backward()
+        topt.step()
+        return loss.detach()
+
+    got, want, got_ms, want_ms = [], [], [], []
+    for _ in range(S2S_PIPE_STEPS):
+        for fn, out, ms in ((lambda: pstep(sp, (packed, None))["loss"], got,
+                             got_ms), (twin_step, want, want_ms)):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out.append(float(fn()))
+            ms.append((time.perf_counter() - t) * 1e3)
+    loss_gap = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+    gap = torch.cat([(sp[k] - twin[k]).detach().abs().flatten()
+                     for k in sp])
+    share = float((gap < 1e-6).float().mean())
+    log(f"seq2seq pipeline, 1 stage x {S2S_MICRO} microbatches vs the "
+        f"unpipelined step: losses {got} vs {want} (largest relative gap "
+        f"{loss_gap:.3e}); parameters after {S2S_PIPE_STEPS} Adam steps: "
+        f"largest gap {float(gap.max()):.3e}, {share:.4%} within 1e-6; step "
+        f"ms {[round(t, 3) for t in got_ms]} vs {[round(t, 3) for t in want_ms]}"
+        f"")
+    check(loss_gap <= S2S_PIPE_LOSS_GAP, f"pipeline loss gap {loss_gap}")
+    check(float(gap.max()) < 3e-5 and share >= 0.999,
+          f"pipeline parameters: gap {float(gap.max())}, {share} within 1e-6")
+    return {"losses": got, "twin_losses": want, "loss_gap": loss_gap,
+            "param_gap": float(gap.max()), "share_within_1e-6": share,
+            "step_ms": got_ms, "twin_step_ms": want_ms}
+
+
+def seq2seq_twins_phase():
+    """The seq2seq examples' twins on the card at their defaults, two
+    epochs each: the data-parallel one through Trainer (its loss falls)
+    and seq2seq_mp1 (finite validation metrics)."""
+    import contextlib
+    import io
+    import tempfile
+
+    from chainermn_tpu_torch.examples import train_seq2seq, train_seq2seq_mp1
+
+    here = os.getcwd()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            for name, module in (("train_seq2seq", train_seq2seq),
+                                 ("train_seq2seq_mp1", train_seq2seq_mp1)):
+                buf = io.StringIO()
+                t = time.perf_counter()
+                with contextlib.redirect_stdout(buf):
+                    res = module.main(["--epoch", "2"])
+                wall = time.perf_counter() - t
+                for line in buf.getvalue().strip().splitlines():
+                    log("  | " + line)
+                out[name] = {"result": res, "wall_s": wall}
+        finally:
+            os.chdir(here)
+    log_ = out["train_seq2seq"]["result"]
+    check(len(log_) == 2 and log_[1]["loss"] < log_[0]["loss"],
+          f"seq2seq twin loss does not fall: {log_}")
+    m = out["train_seq2seq_mp1"]["result"]
+    check(all(np.isfinite(v) for v in m.values()), f"mp1 twin: {m}")
+    log(f"seq2seq twins: data-parallel {out['train_seq2seq']['wall_s']:.1f} s"
+        f" (final {json.dumps(log_[-1])}), mp1 "
+        f"{out['train_seq2seq_mp1']['wall_s']:.1f} s ({json.dumps(m)})")
+    return {k: {"wall_s": v["wall_s"]} for k, v in out.items()} | {
+        "dp_final": log_[-1], "mp1_final": m}
+
+
 def build_all():
     """Every kernel source built from the checkout, in parallel (one
     nvcc each); prints build time, registers, shared memory and spills
@@ -1980,6 +2246,8 @@ def main():
     trainer_path = trainer_phase(plan.n_buckets)
     vgg_path = vgg16_train_phase()
     archs_path = checkpointed_twin_phase()
+    s2s_path = seq2seq_phase()
+    s2s_twins = seq2seq_twins_phase()
 
     log("serve summary: " + json.dumps(serve_path))
     log("train summary: " + json.dumps(train_path))
@@ -1994,6 +2262,8 @@ def main():
     log("trainer summary: " + json.dumps(trainer_path))
     log("vgg16 summary: " + json.dumps(vgg_path))
     log("image archs summary: " + json.dumps(archs_path))
+    log("seq2seq summary: " + json.dumps(s2s_path))
+    log("seq2seq twins summary: " + json.dumps(s2s_twins))
     log("flash_decode float32: " + json.dumps(kern[torch.float32]))
     log("flash attention float32: " + json.dumps(flash[torch.float32]))
     # the kernels' record: each main path's type (bf16) at its shapes

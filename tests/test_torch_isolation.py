@@ -4,8 +4,8 @@ the package loads no subpackage, and the serving, LM training and image
 training paths (synchronized BatchNorm over the hierarchical
 communicator and the int8 wire with error feedback among them; the
 other image archs; the prefetching input pipeline, the synchronized and
-multi-node iterators and the checkpointer with a resume) run with those
-modules made unimportable."""
+multi-node iterators and the checkpointer with a resume; the seq2seq
+chain and pipeline steps) run with those modules made unimportable."""
 
 import ast
 import os
@@ -162,6 +162,30 @@ ckpt.save(1, {{"x": torch.ones(3), "it": it.serialize()}})
 assert ckpt.resume()[0] == 1
 ckpt.finalize()
 dist.destroy_process_group()
+
+from chainermn_tpu_torch.examples import train_seq2seq  # noqa: F401
+from chainermn_tpu_torch.examples.train_seq2seq_mp1 import make_chain
+from chainermn_tpu_torch.models import seq2seq_loss
+from chainermn_tpu_torch.parallel import (build_pipeline_train_step,
+                                          place_stage_params)
+from chainermn_tpu_torch.parallel.seq2seq_pipeline import (
+    Seq2SeqStages, carry_width, pack_batch, pipeline_loss, union_params)
+
+dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                        world_size=1)
+comm = chainermn_tpu_torch.create_communicator("pure_nccl")
+src = torch.randint(3, 16, (4, 4))
+chain = make_chain(comm, 16, 8, 1)
+opt = chain.optimizer(torch.optim.Adam)
+assert np.isfinite(float(chain.value_and_grad(seq2seq_loss)([src, src], src)))
+opt.step()
+stages = Seq2SeqStages(comm, 16, 8, 1, 4)
+sp = place_stage_params(union_params(stages.enc, stages.dec, 1), comm)
+step = build_pipeline_train_step(comm, stages, pipeline_loss,
+                                 torch.optim.Adam(sp.values()), n_micro=2)
+packed = pack_batch(src, src, 2, carry_width(8, 1, 4))
+assert np.isfinite(float(step(sp, (packed, None))["loss"]))
+dist.destroy_process_group()
 assert not any(m.split(".")[0] in BANNED for m in sys.modules)
 print("ok")
 """
@@ -170,11 +194,14 @@ print("ok")
 def test_port_imports_and_serves_with_jax_blocked(tmp_path):
     """The serving path, a training step, the MNIST and ImageNet
     examples' twins (which write their logs and checkpoints under the
-    working directory; every arch, each resumed once), the iterators and
-    the async checkpointer run with JAX and the JAX package
+    working directory; every arch, each resumed once), the iterators,
+    the async checkpointer, a seq2seq chain step (the model-parallel
+    twin's chain) and a pipeline step run with JAX and the JAX package
     unimportable."""
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    # one intra-op thread: the suite's workers share the host's cores
+    env["OMP_NUM_THREADS"] = "1"
     r = subprocess.run(
         [sys.executable, "-c", _BLOCKED_RUN.format(banned=BANNED)],
         capture_output=True, text=True, cwd=str(tmp_path), env=env,

@@ -793,3 +793,121 @@ def test_image_archs_on_card_equal_cpu(monkeypatch, arch, train):
                                                                grads_b))
     den = sum(float((gb ** 2).sum()) for gb in grads_b)
     assert (num / den) ** 0.5 <= 0.1
+
+
+S2S_CARD = dict(vocab=64, units=32, layers=2)
+
+
+def _s2s_card_batch(seed, batch=4, seqlen=8):
+    """Source and target tokens with PAD tails."""
+    from chainermn_tpu_torch.models.seq2seq import PAD
+
+    g = torch.Generator().manual_seed(seed)
+    src, tgt = (torch.randint(3, S2S_CARD["vocab"], (batch, seqlen),
+                              generator=g) for _ in range(2))
+    src[:, -2:] = PAD
+    tgt[1:, -3:] = PAD
+    return src, tgt
+
+
+def _rel_l2(a, b):
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+@pytest.mark.cuda
+def test_seq2seq_chain_and_model_on_card_equal_cpu(monkeypatch):
+    """The ``seq2seq_mp1`` chain (both stages on the one rank; cuDNN's
+    LSTM) and the monolithic ``Seq2Seq`` on the card against the same
+    seeded models on the CPU, TF32 off: logits within 1e-5 of the
+    largest, the first loss within 1e-6 relative and the second within
+    1e-5, every gradient within 1e-5 relative L2, the parameters after 2
+    Adam steps within 3e-5 with 99.9 % of entries within 1e-6 (the CPU
+    parity tests' bounds against JAX)."""
+    _need_card()
+    import torch.distributed as dist
+
+    from chainermn_tpu_torch.communicators import create_communicator
+    from chainermn_tpu_torch.examples.train_seq2seq_mp1 import make_chain
+    from chainermn_tpu_torch.models import (Seq2Seq, seq2seq_loss,
+                                            teacher_forcing)
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    src, tgt = _s2s_card_batch(0)
+    ys_in, ys_out = teacher_forcing(tgt)
+    cfg = (S2S_CARD["vocab"], S2S_CARD["units"], S2S_CARD["layers"])
+    out = {}
+    _mixed_world()
+    try:
+        comm = create_communicator("pure_nccl")
+        for device in ("cpu", "cuda"):
+            chain = make_chain(comm, *cfg, device=device)
+            opt = chain.optimizer(torch.optim.Adam, lr=1e-3)
+            step = chain.value_and_grad(seq2seq_loss)
+            x = [src.to(device), ys_in.to(device)]
+            with torch.no_grad():
+                logits = chain(x).cpu()
+            losses, grads = [], None
+            for _ in range(2):
+                opt.zero_grad()
+                losses.append(float(step(x, ys_out.to(device))))
+                grads = grads or [p.grad.cpu() for p in chain.parameters()]
+                opt.step()
+            model = Seq2Seq(cfg[0], cfg[0], cfg[1], cfg[2]).to(device)
+            m_logits = model(src.to(device), ys_in.to(device))
+            seq2seq_loss(m_logits, ys_out.to(device)).backward()
+            out[device] = (logits, losses, grads,
+                           [p.detach().cpu() for p in chain.parameters()],
+                           m_logits.detach().cpu(),
+                           [p.grad.cpu() for p in model.parameters()])
+    finally:
+        dist.destroy_process_group()
+    card, cpu = out["cuda"], out["cpu"]
+    for a, b in ((card[0], cpu[0]), (card[4], cpu[4])):
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+    assert abs(card[1][0] - cpu[1][0]) <= 1e-6 * abs(cpu[1][0])
+    assert abs(card[1][1] - cpu[1][1]) <= 1e-5 * abs(cpu[1][1])
+    for ga, gb in zip(card[2] + card[5], cpu[2] + cpu[5]):
+        assert _rel_l2(ga, gb) <= 1e-5
+    gap = torch.cat([(a - b).abs().flatten() for a, b in zip(card[3],
+                                                               cpu[3])])
+    assert float(gap.max()) < 3e-5
+    assert float((gap < 1e-6).float().mean()) >= 0.999
+
+
+@pytest.mark.cuda
+def test_translate_on_card_equals_cpu(monkeypatch):
+    """Greedy ``translate`` of one seeded ``Seq2Seq`` on the card and on
+    the CPU, TF32 off: the logits along the CPU's greedy path within
+    1e-5 of the largest, the tokens equal in every row whose greedy path
+    keeps its top two logits more than 1e-4 apart."""
+    _need_card()
+    from chainermn_tpu_torch.models import Seq2Seq, translate
+    from chainermn_tpu_torch.models.seq2seq import BOS
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    xs = _s2s_card_batch(1, batch=16)[0]
+    steps = 9
+    cfg = (S2S_CARD["vocab"], S2S_CARD["vocab"], S2S_CARD["units"],
+           S2S_CARD["layers"])
+    cpu, card = Seq2Seq(*cfg).eval(), Seq2Seq(*cfg).cuda().eval()
+    with torch.no_grad():
+        state = cpu.encode(xs)
+        tok = torch.full((len(xs), 1), BOS, dtype=torch.long)
+        path = []
+        for _ in range(steps):
+            state, logits = cpu.decode(state, tok)
+            tok = logits[:, -1].argmax(-1, keepdim=True)
+            path.append(tok)
+        feed = torch.cat([torch.full((len(xs), 1), BOS, dtype=torch.long)]
+                         + path[:-1], dim=1)
+        want = cpu(xs, feed)
+        got = card(xs.cuda(), feed.cuda()).cpu()
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    top2 = want.topk(2, dim=-1).values
+    clear = ((top2[..., 0] - top2[..., 1]) > 1e-4).all(dim=1).numpy()
+    assert clear.sum() >= len(xs) // 2
+    a = translate(card, xs.cuda(), max_length=steps)
+    b = translate(cpu, xs, max_length=steps)
+    assert (a[clear] == b[clear]).all()

@@ -34,7 +34,10 @@ architectures (``models.VGG16``, ``AlexNet``, ``NIN``, ``GoogLeNet``,
 ``GoogLeNetBN``); and model parallelism (``MultiNodeChainList``,
 ``functions.send``/``recv``/``pseudo_connect`` and the differentiable
 collectives, ``links.create_multi_node_n_step_rnn``,
-``models.Seq2Seq``, ``parallel.build_pipeline_train_step``).
+``models.Seq2Seq``, ``parallel.build_pipeline_train_step``); and the
+optimizer's tier 2 (``create_multi_node_optimizer(double_buffering=,
+zero_redundancy=, overlap="bucket")``, ``build_train_step(accum_steps=,
+remat=)``).
 """
 
 import importlib

@@ -203,22 +203,50 @@ def reduce_buckets(buckets: Sequence[torch.Tensor], n: int,
     return [m for m, _ in pairs], [r for _, r in pairs if r is not None]
 
 
-def reduce_cast(g: torch.Tensor, wire_dtype: Optional[torch.dtype], n: int,
-                ef: bool, group=None):
-    """One bucket through a cast codec (``wire_dtype`` None: codec
-    ``none``): ``(mean, residual or None)``."""
+def storage_dtype(config: WireConfig, bucket_dtype: torch.dtype) -> torch.dtype:
+    """The dtype a stored flat bucket keeps (double buffering's stale
+    gradients): a cast codec's wire dtype unless that would widen the
+    gradient (an f32 wire over bf16 buckets); ``none`` and ``int8``
+    store natively (int8's grid is agreed only at the sync).  Parity:
+    ``chainermn_tpu.comm_wire.codecs.storage_dtype``."""
+    wd = _CAST_WIRE.get(config.codec)
+    if wd is None or wd.itemsize >= bucket_dtype.itemsize:
+        return bucket_dtype
+    return wd
+
+
+def encode_cast(g: torch.Tensor, wire_dtype: Optional[torch.dtype],
+                ef: bool):
+    """A cast codec's first leg (``wire_dtype`` None: codec ``none``):
+    ``(payload to all-reduce, residual or None)``.  The payload is a new
+    tensor, so the all-reduce may run in place on it."""
     if wire_dtype is None or wire_dtype == g.dtype:
-        w = g.clone()
-        dist.all_reduce(w, group=group)
-        return _div(w, n), (g - g if ef else None)
+        return g.clone(), (g - g if ef else None)
     w = fused_cast_scale(g, 1.0, wire_dtype)
     # the residual casts the local payload back before the all-reduce
     # overwrites it
     res = g - fused_cast_scale(w, 1.0, g.dtype) if ef else None
+    return w, res
+
+
+def decode_cast(w: torch.Tensor, native: torch.dtype, n: int) -> torch.Tensor:
+    """A cast codec's second leg: the summed payload ``w`` back in the
+    ``native`` dtype, divided by ``n`` (see :func:`reduce_buckets` for
+    when the divide folds into K1's cast)."""
+    if w.dtype == native:
+        return _div(w, n)
+    if _fuses_divide(n, native):
+        return fused_cast_scale(w, 1.0 / n, native)
+    return _div(fused_cast_scale(w, 1.0, native), n)
+
+
+def reduce_cast(g: torch.Tensor, wire_dtype: Optional[torch.dtype], n: int,
+                ef: bool, group=None):
+    """One bucket through a cast codec (``wire_dtype`` None: codec
+    ``none``): ``(mean, residual or None)``."""
+    w, res = encode_cast(g, wire_dtype, ef)
     dist.all_reduce(w, group=group)
-    if _fuses_divide(n, g.dtype):
-        return fused_cast_scale(w, 1.0 / n, g.dtype), res
-    return _div(fused_cast_scale(w, 1.0, g.dtype), n), res
+    return decode_cast(w, g.dtype, n), res
 
 
 def int8_scales(values: Sequence[torch.Tensor], group=None) -> torch.Tensor:

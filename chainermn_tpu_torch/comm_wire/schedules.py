@@ -26,8 +26,9 @@ stages a bucket when the ring formula's inter-hop saving reaches
 either axis of width 1, as on one node or on the ragged fallback) every
 bucket plans ``flat``; an explicit ``hier_rs_ag`` then warns once.
 
-Left for ROADMAP Queue 1 'Optimizer, tier 2': decisions from a measured
-``BandwidthProfile`` (``profile=``) and the ``bcast_tree`` broadcast.
+Left for ROADMAP Queue 1 'Optimizer, tier 2': the autotuner, that is
+decisions from a measured ``BandwidthProfile`` (``profile=``), and the
+``bcast_tree`` broadcast.
 """
 
 from __future__ import annotations
@@ -57,8 +58,9 @@ GRAD_SCHEDULES = ("flat", "hier_rs_ag")
 #: intra-node launches to pay (the JAX package's threshold)
 MIN_HIER_INTER_SAVINGS = 64 * 1024
 
-_WAITING = ("ROADMAP Queue 1 'Optimizer, tier 2' (BandwidthProfile and "
-            "autotune, bcast_tree)")
+_WAITING = ("ROADMAP Queue 1 'Optimizer, tier 2' (the autotuner: "
+            "BandwidthProfile and the measured schedules and bucket sizes; "
+            "the bcast_tree broadcast)")
 
 
 def _refuse_profile(profile) -> None:
@@ -334,25 +336,16 @@ def _reduce_hier(items, wplan: WirePlan, n: int, config: WireConfig,
     return means, new_res
 
 
-def reduce_wire(buckets: Sequence[torch.Tensor], wplan: WirePlan, n: int,
-                config: WireConfig,
-                residuals: Optional[Sequence[torch.Tensor]] = None,
-                group=None, groups=None
-                ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
-    """Mean-reduce flat wire buckets under ``wplan``'s schedules:
-    the ``flat`` ones through :func:`~.codecs.reduce_buckets` over
-    ``group`` (arithmetic for arithmetic, so an all-flat plan is the
-    flat wire), then the ``hier_rs_ag`` ones over ``groups``, the
-    communicator's ``(intra, inter)`` process groups.  Returns
-    ``(means, new_residuals)`` in plan order; a hier bucket's residual
-    is shard-shaped."""
-    ef = uses_error_feedback(config)
-    buckets = list(buckets)
-    if not buckets:
-        return [], []
-    flat = [(i, g) for i, g in enumerate(buckets)
+def reduce_wire_items(items: Dict[int, torch.Tensor], wplan: WirePlan, n: int,
+                      config: WireConfig,
+                      residuals: Optional[Sequence[torch.Tensor]] = None,
+                      group=None, groups=None) -> Tuple[dict, dict]:
+    """:func:`reduce_wire` of some of the plan's buckets: ``items`` maps
+    a plan index to its flat bucket.  Returns ``({index: mean},
+    {index: new residual})``."""
+    flat = [(i, g) for i, g in sorted(items.items())
             if wplan.schedules[i] != "hier_rs_ag"]
-    hier = [(i, g) for i, g in enumerate(buckets)
+    hier = [(i, g) for i, g in sorted(items.items())
             if wplan.schedules[i] == "hier_rs_ag"]
     means: dict = {}
     new_res: dict = {}
@@ -370,6 +363,27 @@ def reduce_wire(buckets: Sequence[torch.Tensor], wplan: WirePlan, n: int,
                             residuals if residuals else None, groups)
         means.update(m)
         new_res.update(r)
+    return means, new_res
+
+
+def reduce_wire(buckets: Sequence[torch.Tensor], wplan: WirePlan, n: int,
+                config: WireConfig,
+                residuals: Optional[Sequence[torch.Tensor]] = None,
+                group=None, groups=None
+                ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+    """Mean-reduce flat wire buckets under ``wplan``'s schedules:
+    the ``flat`` ones through :func:`~.codecs.reduce_buckets` over
+    ``group`` (arithmetic for arithmetic, so an all-flat plan is the
+    flat wire), then the ``hier_rs_ag`` ones over ``groups``, the
+    communicator's ``(intra, inter)`` process groups.  Returns
+    ``(means, new_residuals)`` in plan order; a hier bucket's residual
+    is shard-shaped."""
+    buckets = list(buckets)
+    if not buckets:
+        return [], []
+    means, new_res = reduce_wire_items(dict(enumerate(buckets)), wplan, n,
+                                       config, residuals, group, groups)
     out_means = [means[i] for i in range(len(buckets))]
-    out_res = [new_res[i] for i in range(len(buckets))] if ef else []
+    out_res = ([new_res[i] for i in range(len(buckets))]
+               if uses_error_feedback(config) else [])
     return out_means, out_res

@@ -96,7 +96,25 @@ Run from the repository root, with one card.  Phases:
    against the unpipelined step; then the seq2seq examples' twins
    (data-parallel through ``Trainer``, and ``seq2seq_mp1``).  No kernel
    of the port is on this path (the LSTM is cuDNN's, as XLA generated
-   the JAX one).
+   the JAX one);
+13. the optimizer's tier 2, at world 1 (one card: nothing moves on the
+   wire, so double buffering and overlap hide nothing; the phase proves
+   the paths and measures their cost): VGG16 at full width (batch 64,
+   224^2, bf16 wire, SGD momentum, seeded dropout, cuDNN's deterministic
+   algorithms) plain, with ``double_buffering=True`` (BASELINE config 3:
+   step 1 leaves every parameter unchanged, step 2 equals the plain
+   step 1 bit for bit; K1 3 launches a bucket a step) and with
+   ``overlap="bucket"`` (its parameters equal the synchronous leg's bit
+   for bit; every bucket issued from the backward, in reverse plan
+   order), each with K1's count set to 0 just before its timed steps and
+   read just after, a profiled step; then the headline TransformerLM at
+   batch 16 x 2048 (``transformer_mfu.py``'s ``b16_remat``): plain,
+   ``remat=True`` (within the LM bound of plain), ``zero_redundancy=
+   True`` (bit-equal to plain), ``accum_steps=2`` (within 2 lr a step of
+   plain: its bf16 weight gradients round per microbatch) and all three
+   (within the LM bound of ``accum_steps=2``), with K2-K4's counts set to
+   0 just before the timed steps and read just after (K2 twice a
+   microbatch under remat).
 
 Any failed check raises, so the script exits non-zero.  Without CUDA it
 exits non-zero before printing any result.  The last two lines are the
@@ -2110,6 +2128,260 @@ def seq2seq_twins_phase():
         "dp_final": log_[-1], "mp1_final": m}
 
 
+# ----------------------------------------------------------------------
+# Phase 13, the optimizer's tier 2 on one card (world 1: nothing moves
+# on the wire, so double buffering and overlap hide nothing; the phase
+# proves the paths and measures their cost)
+# ----------------------------------------------------------------------
+# BASELINE config 3 as bench.py:212-231 runs it (double_buffering=True),
+# at bench.py:565's VGG16 batch; 1 + 6 steps a leg (double buffering:
+# 2 + 6, the second step checked against the plain leg's first)
+TIER2_VGG_STEPS = 6
+# benchmarks/transformer_mfu.py:212 b16_remat (batch 16, remat) with
+# ZeRO-1 and accumulation; 1 + 4 steps a leg
+TIER2_LM_BATCH, TIER2_LM_STEPS = 16, 4
+# the LM's parity bound (tests/test_torch_lm_training.py): every entry
+# within 3e-5 and 99.9 % within 1e-6
+LM_PARAM_ATOL, LM_PARAM_SHARE = 3e-5, 0.999
+
+
+def params_of(model):
+    return [p.detach().clone() for p in model.parameters()]
+
+
+def param_gap(a, b):
+    """Largest gap and the share of entries within 1e-6."""
+    worst, close, n = 0.0, 0, 0
+    for x, y in zip(a, b):
+        d = (x.float() - y.float()).abs()
+        worst = max(worst, float(d.max()))
+        close += int((d <= 1e-6).sum())
+        n += d.numel()
+    return worst, close / n
+
+
+def tier2_vgg16_legs(comm):
+    """VGG16 at full width (batch 64, 224^2, bf16 wire, SGD 0.01 momentum
+    0.9, dropout from a seeded generator), each leg from the same
+    initial weights: plain, double buffering, overlap="bucket"; cuDNN's
+    deterministic algorithms, so that the legs' gradients are
+    comparable bit for bit."""
+    from chainermn_tpu_torch import build_train_step, create_multi_node_optimizer
+    from chainermn_tpu_torch.models import VGG16, flax_ordered_parameters
+    from chainermn_tpu_torch.ops.losses import softmax_cross_entropy
+
+    batch = image_batch(comm.device, VGG_BATCH)
+    legs, kept = {}, {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for leg, kw in (("plain", {}), ("double_buffering",
+                                        dict(double_buffering=True)),
+                        ("overlap", dict(overlap="bucket"))):
+            model = VGG16(num_classes=N_CLASSES, seed=SEED,
+                          image_size=IMAGE).to(comm.device)
+            opt = create_multi_node_optimizer(torch.optim.SGD(
+                [p for _, p in flax_ordered_parameters(model)], lr=IMAGE_LR,
+                momentum=0.9), comm, **kw)
+            gen = torch.Generator(device=comm.device).manual_seed(SEED)
+            step = build_train_step(
+                comm, lambda b: softmax_cross_entropy(
+                    model(b[0], generator=gen), b[1]), opt)
+            plan = opt.wire_plan()
+            p0 = params_of(model)
+            check(np.isfinite(float(step(batch)["loss"])),
+                  f"vgg16 {leg}: warm-up loss not finite")
+            if leg == "plain":
+                kept["step1"] = params_of(model)
+            elif leg == "double_buffering":
+                check(all(torch.equal(a, b) for a, b in
+                          zip(params_of(model), p0)),
+                      "double buffering: step 1 moved a parameter")
+                step(batch)
+                check(all(torch.equal(a, b) for a, b in
+                          zip(params_of(model), kept["step1"])),
+                      "double buffering: step 2 is not the plain step 1, "
+                      "bit for bit")
+                log("vgg16 double buffering: step 1 left all "
+                    f"{len(p0)} parameters unchanged; step 2 equals the "
+                    "plain leg's step 1 bit for bit")
+            del p0
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            fcs.fused_cast_scale.launches = 0
+            losses, times = timed_steps(step, batch, TIER2_VGG_STEPS)
+            launches = fcs.fused_cast_scale.launches
+            peak = torch.cuda.max_memory_allocated()
+            per = 3 if leg == "double_buffering" else 2
+            want = per * plan.n_buckets * TIER2_VGG_STEPS
+            check(launches == want, f"vgg16 {leg}: fused_cast_scale launches"
+                  f" {launches} != {per} x {plan.n_buckets} x "
+                  f"{TIER2_VGG_STEPS}")
+            check(all(np.isfinite(losses)), f"vgg16 {leg}: {losses}")
+            median = float(np.median(times))
+            log(f"vgg16 {leg}: {TIER2_VGG_STEPS} steps: losses {losses}; "
+                f"step ms {[round(t, 3) for t in times]} (median "
+                f"{median:.3f}); {VGG_BATCH / median * 1e3:.1f} images/s; "
+                f"peak {peak / 2**30:.2f} GiB; fused_cast_scale launches "
+                f"{launches} = {per} x {plan.n_buckets} buckets x "
+                f"{TIER2_VGG_STEPS} steps")
+            if leg == "overlap":
+                report = opt.issue_report
+                log(f"vgg16 overlap issue record (bucket, parameters still "
+                    f"without a gradient, from the backward): {report}")
+                check([r.bucket for r in report]
+                      == list(range(plan.n_buckets))[::-1]
+                      and all(r.in_backward for r in report),
+                      f"vgg16 overlap issue record {report}")
+            busy, wall, idle, shares = image_step_profile(
+                f"vgg16 {leg}", step, batch, median)
+            if leg == "plain":
+                kept["final"] = params_of(model)
+            elif leg == "overlap":
+                check(all(torch.equal(a, b) for a, b in
+                          zip(params_of(model), kept["final"])),
+                      "overlap: parameters after the steps differ from the "
+                      "synchronous leg's")
+                log("vgg16 overlap: parameters after 1 + 6 steps and a "
+                    "profiled step equal the synchronous leg's bit for bit")
+            legs[leg] = {"launches": launches, "losses": losses,
+                         "step_ms": times, "median_step_ms": median,
+                         "images_per_s": VGG_BATCH / median * 1e3,
+                         "peak_gib": peak / 2**30, "device_busy_ms": busy,
+                         "profiled_step_ms": wall, "idle_share": idle,
+                         "buckets": plan.n_buckets}
+            del model, opt, step
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    return legs
+
+
+def tier2_lm_legs(comm):
+    """The headline TransformerLM at batch 16 x 2048 (AdamW 3e-4, weight
+    decay 0.01), each leg from the same weights: plain, remat=True,
+    zero_redundancy=True, accum_steps=2, and all three; K2-K4 launches
+    counted a step.  Parameters after the steps: ZeRO equal to plain bit
+    for bit (world 1, the same elementwise AdamW), remat within the LM
+    bound of plain (the same kernels again: expected equal), the three
+    together within the LM bound of ``accum_steps=2`` alone; the
+    accumulation itself rounds its bf16 weight gradients per microbatch,
+    so it is held to plain within 2 lr a step and its losses within
+    1e-4."""
+    from chainermn_tpu_torch import build_train_step, create_multi_node_optimizer
+    from chainermn_tpu_torch.models import flax_ordered_parameters
+
+    tokens = torch.from_numpy(np.random.RandomState(SEED).randint(
+        0, VOCAB, (TIER2_LM_BATCH, TRAIN_SEQ))).to(comm.device)
+    legs, kept = {}, {}
+    for leg, opt_kw, step_kw in (
+            ("plain", {}, {}), ("remat", {}, dict(remat=True)),
+            ("zero", dict(zero_redundancy=True), {}),
+            ("accum2", {}, dict(accum_steps=2)),
+            ("zero_accum2_remat", dict(zero_redundancy=True),
+             dict(accum_steps=2, remat=True))):
+        lm = TransformerLM(VOCAB, D_MODEL, N_HEADS, N_LAYERS, max_len=MAX_LEN,
+                           dtype=torch.bfloat16, seed=SEED,
+                           attention_fn=fa.flash_attention_fn()
+                           ).to(comm.device)
+        opt = create_multi_node_optimizer(
+            torch.optim.AdamW([p for _, p in flax_ordered_parameters(lm)],
+                              lr=3e-4, betas=(0.9, 0.999), eps=1e-8,
+                              weight_decay=0.01), comm, **opt_kw)
+        step = build_train_step(comm, lambda t: lm_loss(lm(t), t), opt,
+                                **step_kw)
+        check(np.isfinite(float(step(tokens)["loss"])),
+              f"lm {leg}: warm-up loss not finite")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_flash_counts()
+        losses, times = timed_steps(step, tokens, TIER2_LM_STEPS)
+        launches = flash_counts()
+        peak = torch.cuda.max_memory_allocated()
+        micro = step_kw.get("accum_steps", 1)
+        fwd = 2 if step_kw.get("remat") else 1
+        want = {"flash_forward": N_LAYERS * micro * fwd * TIER2_LM_STEPS,
+                "flash_backward_dq": N_LAYERS * micro * TIER2_LM_STEPS,
+                "flash_backward_dkv": N_LAYERS * micro * TIER2_LM_STEPS}
+        check(launches == want, f"lm {leg}: flash launches {launches} != "
+              f"{want}")
+        check(all(np.isfinite(losses)), f"lm {leg}: {losses}")
+        median = float(np.median(times))
+        rec = {"launches": launches, "losses": losses, "step_ms": times,
+               "median_step_ms": median,
+               "tokens_per_s": TIER2_LM_BATCH * TRAIN_SEQ / median * 1e3,
+               "peak_gib": peak / 2**30}
+        params = params_of(lm)
+        kept[leg] = params
+        if leg != "plain":
+            ref = "accum2" if leg == "zero_accum2_remat" else "plain"
+            worst, share = param_gap(params, kept[ref])
+            loss_gap = max(abs(a - b) / abs(b) for a, b in
+                           zip(losses, legs[ref]["losses"]))
+            rec.update(against=ref, max_gap=worst, share_within_1e6=share,
+                       loss_gap=loss_gap)
+            if leg == "zero":
+                check(worst == 0.0, f"lm zero: {worst} from the plain leg")
+            elif leg == "accum2":
+                # bf16 weight gradients are rounded per microbatch, so a
+                # near-zero entry's Adam update may change sign: at most
+                # 2 lr a step
+                bound = 2 * 3e-4 * (1 + TIER2_LM_STEPS)
+                check(worst <= bound and loss_gap <= 1e-4,
+                      f"lm accum2: gap {worst} (bound {bound}), loss gap "
+                      f"{loss_gap}")
+            else:
+                check(worst <= LM_PARAM_ATOL and share >= LM_PARAM_SHARE,
+                      f"lm {leg}: gap {worst}, {share:.6f} within 1e-6")
+        if leg == "zero":
+            rec["hbm_bytes"] = opt.hbm_bytes_per_rank()
+        log(f"lm {leg}: {TIER2_LM_STEPS} steps of {TIER2_LM_BATCH}x"
+            f"{TRAIN_SEQ}: losses {losses}; step ms "
+            f"{[round(t, 3) for t in times]} (median {median:.3f}); "
+            f"{rec['tokens_per_s']:.1f} tokens/s; peak {peak / 2**30:.2f} "
+            f"GiB; flash launches {json.dumps(launches)} = {N_LAYERS} "
+            f"layers x {micro} microbatches x {TIER2_LM_STEPS} steps (the "
+            f"forward x{fwd}); "
+            + (f"against {rec['against']}: largest gap {rec['max_gap']:.3e}"
+               f", {rec['share_within_1e6']:.6%} within 1e-6, loss gap "
+               f"{rec['loss_gap']:.3e}" if leg != "plain" else "")
+            + (f"; bytes a rank holds {rec['hbm_bytes']}"
+               if leg == "zero" else ""))
+        legs[leg] = rec
+        del lm, opt, step, params
+        torch.cuda.empty_cache()
+    worst, share = param_gap(kept["zero_accum2_remat"], kept["plain"])
+    legs["zero_accum2_remat"].update(gap_to_plain=worst,
+                                     share_within_1e6_of_plain=share)
+    log(f"lm all three against plain: largest gap {worst:.3e}, "
+        f"{share:.6%} within 1e-6")
+    return legs
+
+
+def tier2_phase():
+    """Phase 13 (see the module docstring): the VGG16 legs and the LM
+    legs on a 1-rank NCCL group."""
+    import torch.distributed as dist
+
+    from chainermn_tpu_torch import create_communicator
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        comm = create_communicator("pure_nccl",
+                                   allreduce_grad_dtype=torch.bfloat16)
+        log("tier 2: world 1 (one card): every all-reduce moves nothing, "
+            "so double buffering and overlap hide nothing here; the legs "
+            "prove the paths and measure their cost")
+        vgg = tier2_vgg16_legs(comm)
+        lm_comm = create_communicator("pure_nccl")
+        lm = tier2_lm_legs(lm_comm)
+        return {"vgg16": vgg, "lm": lm}
+    finally:
+        dist.destroy_process_group()
+
+
 def build_all():
     """Every kernel source built from the checkout, in parallel (one
     nvcc each); prints build time, registers, shared memory and spills
@@ -2248,6 +2520,7 @@ def main():
     archs_path = checkpointed_twin_phase()
     s2s_path = seq2seq_phase()
     s2s_twins = seq2seq_twins_phase()
+    tier2 = tier2_phase()
 
     log("serve summary: " + json.dumps(serve_path))
     log("train summary: " + json.dumps(train_path))
@@ -2264,6 +2537,7 @@ def main():
     log("image archs summary: " + json.dumps(archs_path))
     log("seq2seq summary: " + json.dumps(s2s_path))
     log("seq2seq twins summary: " + json.dumps(s2s_twins))
+    log("tier 2 summary: " + json.dumps(tier2))
     log("flash_decode float32: " + json.dumps(kern[torch.float32]))
     log("flash attention float32: " + json.dumps(flash[torch.float32]))
     # the kernels' record: each main path's type (bf16) at its shapes
@@ -2281,7 +2555,11 @@ def main():
             "bfloat16"))
         records[-1].update(tflops=r["tflops"],
                            share_of_bound=r["share_of_bound"],
-                           design=r["design"])
+                           design=r["design"],
+                           launches_by_path={
+                               "lm_batch8": train_path["launches"][name]} | {
+                               f"lm_batch16_{leg}": rec["launches"][name]
+                               for leg, rec in tier2["lm"].items()})
     # K1: means per launch over one ResNet-50 step's 2 x buckets launches
     records.append(kernel_record(
         "fused_cast_scale", "chainermn_tpu_torch/ops/csrc/fused_cast_scale.cu",
@@ -2296,7 +2574,9 @@ def main():
                        launches_by_path={
                            "resnet50": image_path["launches"],
                            "mnbn_resnet50_bf16": mnbn_path["launches"],
-                           "vgg16": vgg_path["launches"],
+                           "vgg16": vgg_path["launches"]} | {
+                           f"vgg16_tier2_{leg}": rec["launches"]
+                           for leg, rec in tier2["vgg16"].items()} | {
                            "mnbn_resnet50_bf16_ef":
                                mnbn_path["lossy_wires"]["bf16_ef"]["launches"],
                            "mnbn_resnet50_int8_ef":

@@ -302,6 +302,38 @@ def test_newest_common_step_at_world_2(tmp_path):
         assert out["w"] == [2.0 + 10 * r] * 3
 
 
+def test_double_buffering_and_zero_state_round_trip_at_world_2(tmp_path):
+    """The double-buffering buffer (bf16 buckets, SGD with momentum) and
+    the ZeRO shards' Adam state (each rank its own block) go through the
+    checkpointer at step 2 of 4 in a world of 2; a fresh model and
+    optimizer resumed from the snapshot end the 4 steps bit-equal to the
+    uninterrupted run, on every rank."""
+    import torch_mp_workers as W
+
+    rng = np.random.RandomState(7)
+    w0 = [(rng.randint(-8, 9, s) / 8.0).astype(np.float32)
+          for s in ((5,), (3, 4))]
+    xs = [rng.randn(4, 4, *w.shape).astype(np.float32) for w in w0]
+    wire = dict(codec="bf16", bucket_bytes=24, max_buckets=0)
+    runs = [("db", "momentum", 0.1, dict(double_buffering=True, wire=wire)),
+            ("zero", "adam", 0.1, dict(zero_redundancy=True, wire=wire))]
+    ranks = torch_world.run_world(W.jobs_worker, 2, [
+        ("tier2_checkpoint_worker", (str(tmp_path), w0, xs, runs))],
+        timeout=120)
+    for (out,) in ranks:
+        assert out["db"]["keys"] == ["buffer", "param_groups", "state",
+                                     "wire_residual"]
+        assert out["zero"]["keys"] == ["param_groups", "state"]
+        for name in ("db", "zero"):
+            assert out[name]["at"] == 2
+            for a, b in zip(out[name]["resumed"],
+                            out[name]["uninterrupted"]):
+                np.testing.assert_array_equal(a, b)
+    for a, b in zip(ranks[1][0]["zero"]["resumed"],
+                    ranks[0][0]["zero"]["resumed"]):
+        np.testing.assert_array_equal(a, b)
+
+
 def _final_snapshot(path, name):
     root = os.path.join(path, "checkpoints", name)
     newest = sorted(d for d in os.listdir(root) if d.startswith("step_"))[-1]

@@ -911,3 +911,180 @@ def test_translate_on_card_equals_cpu(monkeypatch):
     a = translate(card, xs.cuda(), max_length=steps)
     b = translate(cpu, xs, max_length=steps)
     assert (a[clear] == b[clear]).all()
+
+
+def _quad_case(seed=0, steps=3, rows=4):
+    """Dyadic parameters and batches: every gradient ``w - mean(x)`` and
+    every SGD step is exact, so the card and the CPU agree bit for
+    bit wherever the wire does."""
+    g = torch.Generator().manual_seed(seed)
+
+    def dyadic(*shape):
+        return torch.randint(-8, 9, shape, generator=g).float() / 8.0
+
+    shapes = [(4099,), (64, 33), (7,)]
+    return ([dyadic(*s) for s in shapes],
+            [[dyadic(rows, *s) for s in shapes] for _ in range(steps)])
+
+
+def _quad_train(comm, w0, batches, device, **opt_kw):
+    import chainermn_tpu_torch as cmn
+    from chainermn_tpu_torch.comm_wire import WireConfig
+
+    params = [torch.nn.Parameter(w.clone().to(device)) for w in w0]
+    opt = cmn.create_multi_node_optimizer(
+        torch.optim.SGD(params, lr=0.5, momentum=0.5), comm,
+        wire=WireConfig("bf16", bucket_bytes=1024, max_buckets=0), **opt_kw)
+
+    def loss(b):
+        return sum(0.5 * ((w - x.mean(0)) ** 2).sum()
+                   for w, x in zip(params, b))
+
+    step = cmn.build_train_step(comm, loss, opt)
+    for b in batches:
+        step([x.to(device) for x in b])
+    return [p.detach().cpu() for p in params], opt
+
+
+@pytest.mark.cuda
+def test_double_buffering_and_overlap_on_card_equal_cpu():
+    """Double buffering and ``overlap="bucket"`` (bf16 wire, three
+    buckets, SGD with momentum, 3 steps of an elementwise loss) on card
+    tensors over a 1-rank NCCL group, bit-equal to the same steps on CPU
+    tensors (tolerance 0: K1 is exact, the gradients and steps are
+    exact); K1 launches 3 times a bucket a step under double buffering
+    (the store, the encode, the decode) and twice under overlap."""
+    _need_card()
+    import torch.distributed as dist
+
+    from chainermn_tpu_torch.ops.fused_cast_scale import fused_cast_scale
+
+    w0, batches = _quad_case()
+    _mixed_world()
+    try:
+        import chainermn_tpu_torch as cmn
+
+        comm = cmn.create_communicator("pure_nccl")
+        for kw, per_step in ((dict(double_buffering=True), 3),
+                             (dict(overlap="bucket"), 2)):
+            cpu, _ = _quad_train(comm, w0, batches, "cpu", **kw)
+            card, opt = _quad_train(comm, w0, batches[:1], "cuda", **kw)
+            n0 = fused_cast_scale.launches
+            card, _ = _quad_train(comm, w0, batches, "cuda", **kw)
+            torch.cuda.synchronize()
+            nb = opt.wire_plan().n_buckets
+            assert nb == 3
+            launches = fused_cast_scale.launches - n0
+            # double buffering's first step also puts the zero buffer on
+            # the wire (an encode and a decode a bucket)
+            extra = 2 * nb if "double_buffering" in kw else 0
+            assert launches == per_step * nb * len(batches) + extra, kw
+            for a, b in zip(card, cpu):
+                assert torch.equal(a, b), kw
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_remat_with_flash_kernels_equals_plain():
+    """A 2-layer bf16 TransformerLM through the flash kernels (K2-K4),
+    3 AdamW steps with ``remat=True`` and with ``accum_steps=2`` plus
+    remat, against the same steps without remat: parameters bit-equal
+    (the recompute runs the same kernels on the same inputs); K2 runs
+    twice a microbatch (the forward and the recompute), K3 and K4
+    once."""
+    _need_card()
+    import torch.distributed as dist
+
+    import chainermn_tpu_torch as cmn
+    from chainermn_tpu_torch.models import TransformerLM, lm_loss
+    from chainermn_tpu_torch.ops import flash_attention as fa
+
+    tokens = torch.randint(0, 512, (4, 256),
+                           generator=torch.Generator().manual_seed(1)).cuda()
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        comm = cmn.create_communicator("pure_nccl")
+        out = {}
+        for remat, accum in ((False, 1), (True, 1), (False, 2), (True, 2)):
+            lm = TransformerLM(512, 128, 2, 2, max_len=256,
+                               dtype=torch.bfloat16, seed=0,
+                               attention_fn=fa.flash_attention_fn()).cuda()
+            opt = cmn.create_multi_node_optimizer(
+                torch.optim.AdamW(lm.parameters(), lr=1e-3), comm)
+            step = cmn.build_train_step(comm, lambda t: lm_loss(lm(t), t),
+                                        opt, remat=remat, accum_steps=accum)
+            counts = [getattr(fa, k).launches for k in
+                      ("flash_forward", "flash_backward_dq",
+                       "flash_backward_dkv")]
+            for _ in range(3):
+                step(tokens)
+            torch.cuda.synchronize()
+            got = [getattr(fa, k).launches - c for k, c in zip(
+                ("flash_forward", "flash_backward_dq",
+                 "flash_backward_dkv"), counts)]
+            assert got == [2 * 3 * accum * (2 if remat else 1),
+                           2 * 3 * accum, 2 * 3 * accum], (remat, accum)
+            out[remat, accum] = [p.detach().clone() for p in lm.parameters()]
+        for accum in (1, 2):
+            for a, b in zip(out[True, accum], out[False, accum]):
+                assert torch.equal(a, b), accum
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_tier2_paths_across_cards():
+    """The optimizer's tier 2 over NCCL on up to 4 cards of one host
+    (needs 2), one process per card, an elementwise loss on dyadic data
+    (every sum exact, so the schedules agree bit for bit):
+    ``overlap="bucket"`` equals the synchronous bf16 wire, with every
+    bucket issued from the backward in reverse plan order; double
+    buffering's first step moves nothing and its second equals the plain
+    wrapper's first; ZeRO (on 4 cards as 2 x 2 nodes, ``hier_rs_ag``)
+    equals the plain wrapper; every rank ends equal to rank 0."""
+    _need_card()
+    n = min(torch.cuda.device_count(), 4)
+    if n < 2:
+        pytest.skip("needs 2 or more cards of one host")
+    import numpy as np
+
+    import test_torch_world as torch_world
+    import torch_mp_workers as W
+    from chainermn_tpu_torch.communicators import FAKE_NODE_SIZE_ENV
+
+    rng = np.random.RandomState(0)
+    shapes = [(33,), (8, 9), (5,)]
+    w0 = [(rng.randint(-8, 9, s) / 8.0).astype(np.float32) for s in shapes]
+    xs = [(rng.randint(-8, 9, (3, 2 * n) + s) / 8.0).astype(np.float32)
+          for s in shapes]
+    env = {FAKE_NODE_SIZE_ENV: "2"} if n == 4 else {}
+    ranks = torch_world.run_world(W.tier2_card_worker, n, w0, xs, env,
+                                  timeout=300, backend="nccl", env=env)
+    for r, res in enumerate(ranks):
+        assert res["device"] == f"cuda:{r}"
+        assert res["mesh_shape"] == ({"mn_inter": 2, "mn_intra": 2} if env
+                                     else {"mn": n})
+        for name in ("overlap_bf16", "db_bf16", "zero_none"):
+            for a, b in zip(res[name]["params"][-1],
+                            ranks[0][name]["params"][-1]):
+                np.testing.assert_array_equal(a, b, err_msg=name)
+        for a, b in zip(res["overlap_bf16"]["params"][-1],
+                        res["plain_bf16"]["params"][-1]):
+            np.testing.assert_array_equal(a, b)
+        nb = len(res["overlap_bf16"]["schedules"])
+        assert nb >= 3
+        assert res["overlap_bf16"]["report"] == [
+            (b, res["overlap_bf16"]["report"][i][1], True)
+            for i, b in enumerate(reversed(range(nb)))]
+        for a, b in zip(res["db_bf16"]["params"][0], w0):
+            np.testing.assert_array_equal(a, b)
+        for a, b in zip(res["db_bf16"]["params"][1],
+                        res["plain_bf16"]["params"][0]):
+            np.testing.assert_array_equal(a, b)
+        for a, b in zip(res["zero_none"]["params"][-1],
+                        res["plain_none"]["params"][-1]):
+            np.testing.assert_array_equal(a, b)
+        assert set(res["zero_none"]["schedules"]) == (
+            {"hier_rs_ag"} if n == 4 else {"flat"})

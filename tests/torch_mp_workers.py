@@ -347,3 +347,294 @@ def seq2seq_pipeline_worker(rank, world_size, cfg, stacked, packed, lr,
     comm = create_communicator("pure_nccl")
     return {eps: seq2seq_pipeline_run(comm, cfg, stacked, packed, lr, n_steps,
                                       eps) for eps in epss}
+
+
+# ----------------------------------------------------------------------
+# Optimizer tier 2: double buffering, ZeRO, overlap
+# ----------------------------------------------------------------------
+def quad_loss(params):
+    """``0.5 * sum((w - mean(x, 0))**2)`` over the leaves: the gradient of
+    leaf i is ``w_i - mean(x_i)`` on this rank's rows."""
+    def loss(batch):
+        return sum(0.5 * ((w - x.mean(0)) ** 2).sum()
+                   for w, x in zip(params, batch))
+    return loss
+
+
+def _rows(xs, i, rank, world_size):
+    """Rank ``rank``'s rows of step ``i``'s global batch (one array per
+    leaf, ``(steps, rows, ...)``)."""
+    per = xs[0].shape[1] // world_size
+    return tuple(torch.from_numpy(x[i, rank * per:(rank + 1) * per].copy())
+                 for x in xs)
+
+
+def _inner(params, kind, lr):
+    if kind == "sgd":
+        return torch.optim.SGD(params, lr=lr)
+    if kind == "momentum":
+        return torch.optim.SGD(params, lr=lr, momentum=0.9)
+    return torch.optim.Adam(params, lr=lr)
+
+
+def quad_run(comm, rank, world_size, w0, xs, inner, lr, opt_kw):
+    """``create_multi_node_optimizer(inner, **opt_kw)`` through
+    ``build_train_step`` on :func:`quad_loss`: per step the parameters
+    (and the double-buffering buffer), and at the end the optimizer."""
+    import chainermn_tpu_torch as cmn
+    from chainermn_tpu_torch.comm_wire import WireConfig
+
+    kw = dict(opt_kw)
+    if isinstance(kw.get("wire"), dict):
+        kw["wire"] = WireConfig(**kw["wire"])
+    params = [nn.Parameter(torch.from_numpy(w.copy())) for w in w0]
+    opt = cmn.create_multi_node_optimizer(_inner(params, inner, lr), comm,
+                                          **kw)
+    step = cmn.build_train_step(comm, quad_loss(params), opt)
+    out = {"params": [], "buffer": [], "losses": []}
+    for i in range(xs[0].shape[0]):
+        out["losses"].append(float(step(_rows(xs, i, rank,
+                                              world_size))["loss"]))
+        out["params"].append([_np(p).copy() for p in params])
+        if hasattr(opt, "buffer"):
+            out["buffer"].append([_np(b.float()).copy() for b in opt.buffer])
+    return out, params, opt
+
+
+def quad_cases_worker(rank, world_size, cases, env=None):
+    """Each case ``name -> (w0, xs, inner, lr, opt_kw, checks)`` through
+    :func:`quad_run`.  ``checks``: ``"skip"`` adds a step whose last rank
+    has a NaN loss under ``nonfinite="skip"``; ``"zero"`` adds the
+    shards' state (``{name: array}`` per leaf, ``(1, k)``), the bytes
+    this rank holds, the plain wrapper's parameters on the same inputs,
+    the hier warning (if any) and ``reshard_state``'s error."""
+    import os
+    import warnings
+
+    os.environ.update(env or {})
+    import chainermn_tpu_torch as cmn
+
+    comm = cmn.create_communicator(
+        "hierarchical" if env else "pure_nccl")
+    out = {}
+    for name, (w0, xs, inner, lr, opt_kw, checks) in cases.items():
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            res, params, opt = quad_run(comm, rank, world_size, w0, xs,
+                                        inner, lr, opt_kw)
+        res["warnings"] = [str(w.message) for w in caught]
+        if "skip" in checks:
+            before = ([b.clone() for b in opt.buffer],
+                      [p.detach().clone() for p in params])
+            loss = quad_loss(params)
+
+            def poisoned(b):
+                v = loss(b)
+                return v * float("nan") if rank == world_size - 1 else v
+
+            skip = cmn.build_train_step(comm, poisoned, opt,
+                                        nonfinite="skip")
+            res["skip_finite"] = skip(_rows(xs, 0, rank,
+                                            world_size))["grads_finite"]
+            res["skip_kept"] = (
+                all(torch.equal(a, b) for a, b in zip(before[0],
+                                                      opt.buffer))
+                and all(torch.equal(a, b) for a, b in zip(before[1],
+                                                          params)))
+        if "zero" in checks:
+            state = opt.shard_optimizer.state
+            res["state"] = [{k: _np(v).copy() for k, v in state[s].items()
+                             if v.dim()} for s in opt.shards]
+            res["hbm"] = opt.hbm_bytes_per_rank()
+            res["n_scalars"] = sum(1 for s in opt.shards
+                                   for v in state[s].values()
+                                   if not v.dim())
+            res["schedules"] = opt.wire_plan().schedules
+            kw = {k: v for k, v in opt_kw.items() if k != "zero_redundancy"}
+            plain, _, _ = quad_run(comm, rank, world_size, w0, xs, inner,
+                                   lr, kw)
+            res["plain_params"] = plain["params"]
+            try:
+                opt.reshard_state(opt.state_dict(), world_size + 1)
+            except NotImplementedError as e:
+                res["reshard_error"] = str(e)
+        out[name] = res
+    return out
+
+
+def mlp_db_worker(rank, world_size, variables, data, steps, runs):
+    """The flax-layout MNIST MLP with double buffering: for each ``(inner,
+    lr)`` of ``runs``, ``steps`` steps of ``per`` rows a rank; the
+    losses and the parameters (flax order)."""
+    import chainermn_tpu_torch as cmn
+    from chainermn_tpu_torch.ops.losses import softmax_cross_entropy
+    from test_torch_world import FlaxLayoutMLP
+
+    comm = cmn.create_communicator("pure_nccl")
+    x, y = data
+    per = len(x) // (steps * world_size)
+    out = {}
+    for inner, lr in runs:
+        model = FlaxLayoutMLP(variables)
+        opt = cmn.create_multi_node_optimizer(
+            _inner(list(model.parameters()), inner, lr), comm,
+            double_buffering=True)
+        step = cmn.build_train_step(
+            comm, lambda b: softmax_cross_entropy(model(b[0]), b[1]), opt)
+        losses = []
+        for i in range(steps):
+            lo = (i * world_size + rank) * per
+            losses.append(float(step((torch.from_numpy(x[lo:lo + per]),
+                                      torch.from_numpy(y[lo:lo + per])))
+                                ["loss"]))
+        out[inner] = {"losses": losses,
+                      "params": [_np(p).copy() for p in model.parameters()]}
+    return out
+
+
+class _WithUnused(nn.Module):
+    """A model with a parameter no loss reaches: its hook never fires."""
+
+    def __init__(self, inner):
+        super().__init__()
+        self.inner = inner
+        self.unused = nn.Parameter(torch.ones(3))
+
+    def forward(self, x):
+        return self.inner(x)
+
+
+def overlap_worker(rank, world_size, variables, data, steps, cases):
+    """The flax-layout MNIST MLP, SGD with momentum, for each case
+    ``(name, wire, accum_steps, unused)``: the synchronous wire and
+    ``overlap="bucket"`` on the same batches; each run's parameters,
+    error-feedback residual, losses and the overlapped run's issue
+    record of every step."""
+    import chainermn_tpu_torch as cmn
+    from chainermn_tpu_torch.comm_wire import WireConfig
+    from chainermn_tpu_torch.ops.losses import softmax_cross_entropy
+    from test_torch_world import FlaxLayoutMLP
+
+    comm = cmn.create_communicator("pure_nccl")
+    x, y = data
+    per = len(x) // (steps * world_size)
+    out = {}
+    for name, wire, accum, unused in cases:
+        runs = {}
+        for mode in ("none", "bucket"):
+            model = FlaxLayoutMLP(variables)
+            if unused:
+                model = _WithUnused(model)
+            opt = cmn.create_multi_node_optimizer(
+                torch.optim.SGD(model.parameters(), lr=0.05, momentum=0.9),
+                comm, wire=WireConfig(**wire), overlap=mode)
+            step = cmn.build_train_step(
+                comm, lambda b: softmax_cross_entropy(model(b[0]), b[1]),
+                opt, accum_steps=accum)
+            losses, reports = [], []
+            for i in range(steps):
+                lo = (i * world_size + rank) * per
+                losses.append(float(step((torch.from_numpy(x[lo:lo + per]),
+                                          torch.from_numpy(y[lo:lo + per])))
+                                    ["loss"]))
+                reports.append([tuple(r) for r in opt.issue_report])
+            runs[mode] = {
+                "losses": losses, "reports": reports,
+                "params": [_np(p).copy() for p in model.parameters()],
+                "residual": [_np(r).copy() for r in opt.wire_residual],
+                "n_buckets": opt.wire_plan().n_buckets,
+                "schedules": opt.wire_plan().schedules}
+        out[name] = runs
+    return out
+
+
+def tier2_checkpoint_worker(rank, world_size, root, w0, xs, runs):
+    """For each ``(name, inner, lr, opt_kw)`` of ``runs``: 2 steps of
+    :func:`quad_loss`, a snapshot of the parameters and the optimizer's
+    state through the multi-node checkpointer, 2 more steps; then a
+    fresh model and optimizer resumed from the snapshot take the same 2
+    steps.  Returns both runs' final parameters and the snapshot's
+    optimizer-state keys."""
+    import chainermn_tpu_torch as cmn
+    from chainermn_tpu_torch.comm_wire import WireConfig
+
+    comm = cmn.create_communicator("pure_nccl")
+    out = {}
+    for name, inner, lr, opt_kw in runs:
+        kw = dict(opt_kw, wire=WireConfig(**opt_kw["wire"]))
+        ckpt = cmn.create_multi_node_checkpointer(name, comm, path=root)
+
+        def build():
+            params = [nn.Parameter(torch.from_numpy(w.copy())) for w in w0]
+            opt = cmn.create_multi_node_optimizer(
+                _inner(params, inner, lr), comm, **kw)
+            return params, opt, cmn.build_train_step(
+                comm, quad_loss(params), opt)
+
+        params, opt, step = build()
+        for i in range(2):
+            step(_rows(xs, i, rank, world_size))
+        ckpt.save(2, {"params": [p.detach() for p in params],
+                      "opt": opt.state_dict()})
+        for i in range(2, 4):
+            step(_rows(xs, i, rank, world_size))
+        ckpt.wait_until_finished()
+        params2, opt2, step2 = build()
+        at, state = ckpt.resume()
+        with torch.no_grad():
+            for p, s in zip(params2, state["params"]):
+                p.copy_(s)
+        opt2.load_state_dict(state["opt"])
+        for i in range(at, 4):
+            step2(_rows(xs, i, rank, world_size))
+        out[name] = {"uninterrupted": [_np(p).copy() for p in params],
+                     "resumed": [_np(p).copy() for p in params2],
+                     "at": at, "keys": sorted(state["opt"])}
+        ckpt.finalize()
+    return out
+
+
+def tier2_card_worker(rank, world_size, w0, xs, env):
+    """The tier-2 paths on card ``rank`` over NCCL (on the CPU in a gloo
+    world), SGD with momentum on
+    :func:`quad_loss`: the plain wrapper, ``overlap="bucket"`` (bf16
+    wire), double buffering (bf16 wire; the parameters after its first
+    two steps) and ZeRO (``none`` wire; ``hier_rs_ag`` over the
+    hierarchical communicator when ``env`` groups the ranks into
+    nodes)."""
+    import os
+
+    import torch.distributed as dist
+
+    os.environ.update(env)
+    import chainermn_tpu_torch as cmn
+    from chainermn_tpu_torch.comm_wire import WireConfig
+
+    device = (torch.device("cpu") if dist.get_backend() == "gloo"
+              else torch.device("cuda", rank))
+    comm = cmn.create_communicator("hierarchical" if env else "pure_nccl")
+    knobs = dict(bucket_bytes=64, max_buckets=0)
+    out = {"device": str(device), "mesh_shape": comm.mesh_shape}
+    for name, kw in (
+            ("plain_bf16", dict(wire=WireConfig("bf16", **knobs))),
+            ("overlap_bf16", dict(wire=WireConfig("bf16", **knobs),
+                                  overlap="bucket")),
+            ("db_bf16", dict(wire=WireConfig("bf16", **knobs),
+                             double_buffering=True)),
+            ("plain_none", dict(wire=WireConfig("none", **knobs))),
+            ("zero_none", dict(zero_redundancy=True, wire=WireConfig(
+                "none", schedule="hier_rs_ag" if env else "flat",
+                **knobs)))):
+        params = [nn.Parameter(torch.from_numpy(w.copy()).to(device))
+                  for w in w0]
+        opt = cmn.create_multi_node_optimizer(
+            torch.optim.SGD(params, lr=0.5, momentum=0.5), comm, **kw)
+        step = cmn.build_train_step(comm, quad_loss(params), opt)
+        per_step = []
+        for i in range(xs[0].shape[0]):
+            step(tuple(x.to(device) for x in _rows(xs, i, rank, world_size)))
+            per_step.append([p.detach().cpu().numpy().copy() for p in params])
+        out[name] = {"params": per_step,
+                     "schedules": opt.wire_plan().schedules,
+                     "report": [tuple(r) for r in opt.issue_report]}
+    return out
